@@ -1,0 +1,38 @@
+"""computervisionimagestich2_tpu_torch — the panorama stitcher in PyTorch.
+
+A port of ``computervisionimagestich2_tpu`` (JAX/XLA/Pallas) to PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper (H100, ``sm_90a``). The JAX
+package stays the reference; every function here has a counterpart of the
+same name at the same place in its layout (``core/``, ``ops/``,
+``models/``, ``utils/``).
+
+This package covers one slice of the JAX package's main path, the
+chain-ordered planned stitch (``config.SLICE_CONFIG``); ``check_supported``
+names what lies outside it. The package imports ``torch`` and never
+``jax``. Kernels are compiled with ``nvcc`` at first use on a CUDA tensor
+(``ops/_native.py``); nothing is built or loaded at import.
+"""
+from .config import (  # noqa: F401
+    DEFAULT_CONFIG,
+    SLICE_CONFIG,
+    BlendConfig,
+    EnhanceConfig,
+    MatchConfig,
+    ProjectionConfig,
+    RansacConfig,
+    SiftConfig,
+    StitchConfig,
+    check_supported,
+)
+from .device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # keep `import computervisionimagestich2_tpu_torch` light
+    if name in ("Stitcher", "stitch"):
+        from .models import stitcher as _stitcher
+
+        return getattr(_stitcher, name)
+    raise AttributeError(name)

@@ -1,0 +1,59 @@
+"""Configuration: the JAX package's dataclasses, plus the port's slice.
+
+``computervisionimagestich2_tpu.config`` imports no JAX, so the port reuses
+it rather than copying it; a ``StitchConfig`` built for either package is
+valid for both.
+
+``SLICE_CONFIG`` is the part of the main path this package implements:
+chain ordering, the dense (non-fused) extrema detect, and exact L1
+matching, everything else at its default. ``check_supported`` raises
+``NotImplementedError`` for any switch outside it, naming the ROADMAP item
+that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from computervisionimagestich2_tpu.config import (  # noqa: F401
+    DEFAULT_CONFIG,
+    BlendConfig,
+    EnhanceConfig,
+    MatchConfig,
+    ProjectionConfig,
+    RansacConfig,
+    SiftConfig,
+    StitchConfig,
+)
+
+SLICE_CONFIG = dataclasses.replace(
+    DEFAULT_CONFIG,
+    ordering="chain",
+    sift=dataclasses.replace(DEFAULT_CONFIG.sift, detect_impl="xla"),
+    match=dataclasses.replace(DEFAULT_CONFIG.match, method="exact"),
+)
+
+
+def check_supported(cfg: StitchConfig) -> None:
+    """Raise NotImplementedError if ``cfg`` leaves the ported slice."""
+    unsupported = [
+        (cfg.ordering != "chain", "ordering='graph'", "A6 (with kernel B5)"),
+        (cfg.sift.detect_impl != "xla", "sift.detect_impl='pallas'",
+         "B1 (fused detect)"),
+        (cfg.match.method != "exact", "match.method='l2pre'/'auto'", "A14"),
+        (cfg.match.distance != "l1", "match.distance='l2'", "A14"),
+        (not cfg.planned, "planned=False", "A12"),
+        (not cfg.exact_canvas, "exact_canvas=False", "A12"),
+        (cfg.warp_model != "bilinear", "warp_model='projective'", "A13"),
+        (cfg.blend.blur_impl != "fir", f"blend.blur_impl="
+         f"{cfg.blend.blur_impl!r}", "A13 (vanvliet); fir_fused is TPU-only"),
+        (cfg.sift.o_min < 0, "sift.o_min<0", "A13"),
+        (cfg.color_transfer, "color_transfer=True", "A13"),
+        (cfg.blend.gain_compensation and cfg.blend.gain_mode == "luma",
+         "blend.gain_mode='luma' with gain_compensation", "A13"),
+        (cfg.sift.walk_dtype != "f32", "sift.walk_dtype='bf16'",
+         "§A 'Do not port' (a TPU-only experiment)"),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is outside the ported slice; see ROADMAP.md {item}")

@@ -1,0 +1,135 @@
+"""Per-edge registration and the edge plan (counterpart of
+``computervisionimagestich2_tpu.models.registration``).
+
+One stitch edge (ImageProcess.cpp:176-227): bidirectional matching, the
+direction swap on the uncapped counts (ImageProcess.cpp:185-198), forward
+and backward RANSAC, the canvas bounds, and the feature-coordinate
+updates. ``plan_edges`` runs every edge of the stitch order as a Python
+loop of device work and reads the [E, 23] plan back to the host once.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import StitchConfig
+from ..core.types import Features, MatchPairs
+from ..ops import rng
+from ..ops.warp import warp_points
+from .matcher import match_features_bidir
+from .ransac import ransac_warp
+
+
+def _pick(cond: torch.Tensor, a: MatchPairs, b: MatchPairs) -> MatchPairs:
+    return MatchPairs(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+def register_edge(feats_src: Features, feats_dst: Features,
+                  cfg: StitchConfig, edge_id: int = 0,
+                  img_hw: tuple[int, int] | None = None):
+    """Returns (forward, backward, n_matches, overflow): forward maps
+    dst-image coords into the src/result frame, backward maps canvas
+    coords into dst-image coords, n_matches is the larger direction's
+    match count, overflow the matches dropped by the capacity.
+
+    ``edge_id`` decorrelates the RANSAC draws across edges (fold_in); each
+    direction folds its own tag. ``img_hw``: the incoming image's (H, W);
+    when given, the forward RANSAC gates out hypotheses that map the image
+    corners more than 4 image diagonals outside the matched region."""
+    mcfg = cfg.match
+    s2d, d2s = match_features_bidir(feats_src, feats_dst,
+                                    mcfg.ratio_threshold, mcfg.max_matches)
+    n_s2d, n_d2s = s2d.n_raw, d2s.n_raw
+    use_s2d = n_s2d > n_d2s
+    s2d_final = _pick(use_s2d, s2d, d2s.swapped())
+    d2s_final = _pick(use_s2d, s2d.swapped(), d2s)
+
+    key = rng.fold_in(rng.prng_key(cfg.ransac.seed), edge_id)
+    key_fwd = rng.fold_in(key, 0)
+    key_bwd = rng.fold_in(key, 1)
+    corner_xy = corner_span = None
+    if img_hw is not None:
+        h_img, w_img = img_hw
+        corner_xy = torch.tensor(
+            [[0.0, 0.0], [w_img - 1.0, 0.0], [0.0, h_img - 1.0],
+             [w_img - 1.0, h_img - 1.0]], dtype=torch.float32,
+            device=feats_src.desc.device)
+        corner_span = 4.0 * math.hypot(float(w_img), float(h_img))
+    rc = cfg.ransac
+    forward, _, _ = ransac_warp(d2s_final, key_fwd, rc.n_hypotheses,
+                                rc.threshold, rc.n_sample, cfg.warp_model,
+                                rc.lo_iters, corner_xy, corner_span)
+    backward, _, _ = ransac_warp(s2d_final, key_bwd, rc.n_hypotheses,
+                                 rc.threshold, rc.n_sample, cfg.warp_model,
+                                 rc.lo_iters)
+    return (forward, backward, torch.maximum(n_s2d, n_d2s),
+            s2d_final.overflow())
+
+
+def update_features_by_warp(feats: Features, coeffs: torch.Tensor,
+                            offset_x, offset_y,
+                            model: str = "bilinear") -> Features:
+    """updateFeaturesByHomography (ImageProcess.cpp:622-631)."""
+    xw, yw = warp_points(coeffs, feats.xy[:, 0], feats.xy[:, 1], model)
+    return feats._replace(xy=torch.stack([xw - offset_x, yw - offset_y],
+                                         dim=-1))
+
+
+def _canvas_bounds(fwd: torch.Tensor, w_src: int, h_src: int,
+                   cur_w, cur_h, model: str):
+    """Canvas bounds after warping the source corners
+    (getMin/Max*AfterWarping + clamps, ImageProcess.cpp:206-216, 532-594).
+    Returns (min_x, min_y, new_w, new_h) as device scalars."""
+    dev = fwd.device
+    xs = torch.tensor([0.0, w_src - 1.0, 0.0, w_src - 1.0], device=dev)
+    ys = torch.tensor([0.0, 0.0, h_src - 1.0, h_src - 1.0], device=dev)
+    xw, yw = warp_points(fwd, xs, ys, model)
+    min_x = torch.clamp(xw.min(), max=0.0)
+    min_y = torch.clamp(yw.min(), max=0.0)
+    max_x = torch.maximum(xw.max(), cur_w)
+    max_y = torch.maximum(yw.max(), cur_h)
+    return min_x, min_y, torch.ceil(max_x - min_x), torch.ceil(max_y - min_y)
+
+
+PLAN_ROW = 23  # fwd(9) + bwd(9) + [min_x, min_y, new_w, new_h, overflow]
+
+
+def plan_edges(feats_stacked: Features, edges: list[tuple[int, int, int]],
+               img_hw: tuple[int, int], start_hw: tuple[int, int],
+               cfg: StitchConfig) -> np.ndarray:
+    """Register every stitch edge and return the [E, 23] plan on the host.
+
+    feats_stacked: Features with a leading image axis [N, CAP, ...].
+    edges: (src, dst, pre) triples in BFS order. Per edge: match, solve
+    both RANSAC directions, compute the canvas bounds, then update the
+    feature coordinates — dst by forward + offset, pre by the
+    int-truncated offset (ImageProcess.cpp:226-227). Rows: fwd(9),
+    bwd(9), min_x, min_y, new_w, new_h, match-capacity overflow."""
+    h_img, w_img = img_hw
+    dev = feats_stacked.desc.device
+    xy_all = feats_stacked.xy.clone()   # updated in place, edge by edge
+    cur_w = torch.tensor(float(start_hw[1]), device=dev)
+    cur_h = torch.tensor(float(start_hw[0]), device=dev)
+    zero = torch.zeros(1, device=dev)
+    rows = []
+    for src, dst, pre in edges:
+        def at_img(i):
+            return Features(desc=feats_stacked.desc[i], xy=xy_all[i],
+                            scale=feats_stacked.scale[i],
+                            valid=feats_stacked.valid[i])
+
+        # (src, dst) is unique per edge -> distinct RANSAC draws per edge
+        fwd, bwd, _, ovf = register_edge(at_img(src), at_img(dst), cfg,
+                                         src * 65536 + dst, img_hw)
+        min_x, min_y, new_w, new_h = _canvas_bounds(
+            fwd, w_img, h_img, cur_w, cur_h, cfg.warp_model)
+        xy_all[dst] = update_features_by_warp(at_img(dst), fwd, min_x, min_y,
+                                              cfg.warp_model).xy
+        xy_all[pre] = xy_all[pre] - torch.stack(
+            [torch.trunc(min_x), torch.trunc(min_y)])[None, :]
+        rows.append(torch.cat([fwd, zero, bwd, zero, torch.stack(
+            [min_x, min_y, new_w, new_h, ovf.float()])]))
+        cur_w, cur_h = new_w, new_h
+    return torch.stack(rows).cpu().numpy()

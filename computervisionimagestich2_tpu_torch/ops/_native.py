@@ -1,0 +1,149 @@
+"""Build, load and call the hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels expose a plain C interface (``csrc/api.h``): each function
+launches on the stream it is given and returns the launch's
+``cudaError_t``. They are compiled with ``nvcc`` for ``sm_90a`` into one
+shared library at first use — never at import — under ``build/torch_kernels/``
+at the root of the checkout, keyed by a hash of the sources and flags, and
+loaded with ``ctypes``.
+
+``--fmad=false`` keeps every float multiply and add separately rounded, as
+PyTorch's elementwise ops and XLA compute them: the warp truncates
+coefficients to integer pixel indices and the SIFT walks decide window
+membership with ``floor`` and ``<``, so a contracted multiply-add would
+move pixels.
+
+``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that it went
+through the kernels (``reset_launch_counts`` / ``launch_counts``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("sift_walks.cu", "l1_2nn.cu", "warp.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"sift_orientation_hist": 0, "sift_descriptors": 0,
+            "l1_two_nearest": 0, "warp_image": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # (mod, ang, h, w, x, y, sigma, n_valid, n, radius, hist, stream)
+    "cvs_orientation_hist": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
+    # (mod, ang, h, w, x, y, sigma, angle, n_valid, n, radius, magnif,
+    #  window_size, desc, stream)
+    "cvs_descriptors": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                        _P, _P),
+    # (qry, ref, counts, nb, d1, d2, i1, stream)
+    "cvs_l1_two_nearest": (_P, _P, _P, _I, _P, _P, _P, _P),
+    # (src, src_h, src_w, channels, params, h_out, w_out, out, stream)
+    "cvs_warp_image": (_P, _I, _I, _I, _P, _I, _I, _P, _P),
+}
+
+_LIB = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def build_dir() -> Path:
+    """``build/torch_kernels`` at the root of the checkout (listed in
+    ``.gitignore``)."""
+    return Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                           "to build the CUDA kernels")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in ("api.h",) + SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return build_dir() / h.hexdigest()[:16] / "libcvs_kernels.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    Returns its path. The build writes to a temporary name and renames it
+    into place, so a concurrent process never loads a partial file."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel launcher ``name`` on the current CUDA stream (appended as
+    the last argument); raise if the launch reported an error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               shape: tuple | None = None, align: int = 4) -> None:
+    """Validate a tensor handed to a kernel: CUDA, dtype, shape (None
+    entries match anything), contiguity and pointer alignment."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and (t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape))):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: pointer not {align}-byte aligned")

@@ -1,0 +1,240 @@
+"""PyTorch port vs the JAX package: matching (plain version of kernel B4),
+the threefry generator, the warp solver, RANSAC and the edge plan.
+
+The descriptor sets are the JAX package's own SIFT features of
+``make_scene`` crops, carried into the port with ``features_from_numpy``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from computervisionimagestich2_tpu.core.types import Features as JFeatures
+from computervisionimagestich2_tpu.models import matcher as jmatcher
+from computervisionimagestich2_tpu.models import ransac as jransac
+from computervisionimagestich2_tpu.models import registration as jreg
+from computervisionimagestich2_tpu.models.stitcher import Stitcher as JStitcher
+from computervisionimagestich2_tpu.ops import distance as jdist
+from computervisionimagestich2_tpu.ops import solve as jsolve
+from computervisionimagestich2_tpu.ops.pallas_distance import (
+    two_nearest_l1_bidir_pallas)
+from computervisionimagestich2_tpu_torch import SLICE_CONFIG
+from computervisionimagestich2_tpu_torch.core.types import (
+    Features, MatchPairs, features_from_numpy, features_to_numpy)
+from computervisionimagestich2_tpu_torch.models import matcher as tmatcher
+from computervisionimagestich2_tpu_torch.models import ransac as transac
+from computervisionimagestich2_tpu_torch.models import registration as treg
+from computervisionimagestich2_tpu_torch.ops import distance as tdist
+from computervisionimagestich2_tpu_torch.ops import rng as trng
+from computervisionimagestich2_tpu_torch.ops import solve as tsolve
+from test_integration import make_scene
+
+T = torch.as_tensor
+CFG = dataclasses.replace(
+    SLICE_CONFIG,
+    sift=dataclasses.replace(SLICE_CONFIG.sift, n_octaves=2,
+                             max_keypoints_per_octave=512,
+                             max_keypoints=1024),
+    match=dataclasses.replace(SLICE_CONFIG.match, max_matches=512),
+    ransac=dataclasses.replace(SLICE_CONFIG.ransac, n_hypotheses=64))
+
+
+@pytest.fixture(scope="module")
+def jax_feats():
+    """The JAX package's stacked features of three overlapping crops."""
+    scene = make_scene(np.random.default_rng(0), h=160, w=320)
+    parts = [scene[:, s:s + 160] for s in (0, 80, 160)]
+    st = JStitcher(CFG)
+    proj, _ = st.prepare(parts)
+    fs = st._matching_feats()
+    return tuple(np.array(a) for a in fs), proj[0].shape[:2]
+
+
+def _feat(stacked, i):
+    return tuple(a[i] for a in stacked)
+
+
+def _jfeat(f):
+    return JFeatures(*(jnp.asarray(a) for a in f))
+
+
+def _close_l1(d1_t, d2_t, i1_t, d1_j, d2_j, i1_j, live):
+    """d1/d2 rtol 1e-5 (tests/test_pallas_distance.py:24-25); i1 equal
+    wherever the 2-NN gap d2 - d1 exceeds 1e-4 * d1 (ties may break either
+    way under another summation order)."""
+    d1_j, d2_j, i1_j = (np.asarray(a)[live] for a in (d1_j, d2_j, i1_j))
+    np.testing.assert_allclose(d1_t.numpy()[live], d1_j, rtol=1e-5)
+    np.testing.assert_allclose(d2_t.numpy()[live], d2_j, rtol=1e-5)
+    clear = (d2_j - d1_j) > 1e-4 * d1_j
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(i1_t.numpy()[live][clear], i1_j[clear])
+
+
+def test_two_nearest_bidir_matches_pallas_and_xla(jax_feats):
+    """Plain version of B4 vs two_nearest_l1_bidir_pallas(interpret=True)
+    and the XLA two_nearest_bidir(method="exact")."""
+    stacked, _ = jax_feats
+    desc, valid = stacked[0], stacked[3]
+    q, r, qv, rv = desc[1], desc[0], valid[1], valid[0]
+    assert qv.sum() > 20 and rv.sum() > 20
+    fwd_t, bwd_t = tdist.two_nearest_bidir(T(q), T(r), T(qv), T(rv))
+    refs = [two_nearest_l1_bidir_pallas(jnp.asarray(q), jnp.asarray(r),
+                                        jnp.asarray(qv), jnp.asarray(rv),
+                                        interpret=True),
+            jdist.two_nearest_bidir(jnp.asarray(q), jnp.asarray(r),
+                                    jnp.asarray(qv), jnp.asarray(rv),
+                                    "l1", "off", "exact")]
+    for fwd_j, bwd_j in refs:
+        _close_l1(*fwd_t, *fwd_j, qv)
+        _close_l1(*bwd_t, *bwd_j, rv)
+    # dead rows never match
+    assert (fwd_t[0].numpy()[~qv] > 1e37).all()
+
+
+def test_two_nearest_ties_and_dead_refs():
+    """Exact ties pick the lowest index and give d2 == d1; dead
+    references never win."""
+    q = np.zeros((3, 128), np.float32)
+    r = np.zeros((5, 128), np.float32)
+    r[1] = r[3] = 0.5
+    r[0] = 9.0
+    q[1] = 0.5
+    rv = np.array([False, True, True, True, False])
+    d1, d2, i1 = tdist.two_nearest(T(q), T(r), T(np.ones(3, bool)), T(rv))
+    jd1, jd2, ji1 = jdist.two_nearest(jnp.asarray(q), jnp.asarray(r),
+                                      jnp.ones(3, bool), jnp.asarray(rv),
+                                      "l1", "off", "exact")
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(ji1))
+    np.testing.assert_array_equal(d1.numpy(), np.asarray(jd1))
+    np.testing.assert_array_equal(d2.numpy(), np.asarray(jd2))
+    assert i1[1] == 1 and d1[1] == d2[1] == 0.0
+
+
+def test_match_features_bidir_equal(jax_feats):
+    """Equal pairs and n_raw in both directions."""
+    stacked, _ = jax_feats
+    fa, fb = _feat(stacked, 0), _feat(stacked, 1)
+    jab, jba = jmatcher.match_features_bidir(
+        _jfeat(fa), _jfeat(fb), 0.5, "l1", 512, "off", "exact")
+    tab, tba = tmatcher.match_features_bidir(
+        features_from_numpy(fa, "cpu"), features_from_numpy(fb, "cpu"),
+        0.5, 512)
+    for t, j in ((tab, jab), (tba, jba)):
+        assert int(t.n_raw) == int(np.asarray(j.n_raw)) > 10
+        np.testing.assert_array_equal(t.valid.numpy(), np.asarray(j.valid))
+        v = t.valid.numpy()
+        np.testing.assert_array_equal(t.src_xy.numpy()[v],
+                                      np.asarray(j.src_xy)[v])
+        np.testing.assert_array_equal(t.dst_xy.numpy()[v],
+                                      np.asarray(j.dst_xy)[v])
+
+
+def test_features_numpy_round_trip(jax_feats):
+    stacked, _ = jax_feats
+    f = features_from_numpy(_feat(stacked, 2), "cpu")
+    assert isinstance(f, Features) and f.valid.dtype == torch.bool
+    for a, b in zip(features_to_numpy(f), _feat(stacked, 2)):
+        np.testing.assert_array_equal(a, b)
+    assert int(f.count()) == int(_feat(stacked, 2)[3].sum())
+
+
+# ------------------------------------------------------------------ rng
+@pytest.mark.parametrize("data", [0, 1, 65537, 131072 + 1, 2 ** 32 - 1])
+def test_threefry_bit_exact(data):
+    """PRNGKey(666666), fold_in on uint32 edge ids, uniform((128, 4)) —
+    the calls of registration.py:63-66 and ransac.py:82."""
+    jkey = jax.random.PRNGKey(666666)
+    tkey = trng.prng_key(666666)
+    np.testing.assert_array_equal(tkey.numpy(),
+                                  np.asarray(jkey).astype(np.int64))
+    jk = jax.random.fold_in(jkey, jnp.asarray(data, jnp.uint32))
+    tk = trng.fold_in(tkey, data)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk).astype(np.int64))
+    for tag in (0, 1):
+        ju = np.asarray(jax.random.uniform(jax.random.fold_in(jk, tag),
+                                           (128, 4)))
+        tu = trng.uniform(trng.fold_in(tk, tag), (128, 4)).numpy()
+        np.testing.assert_array_equal(tu.view(np.uint32), ju.view(np.uint32))
+
+
+# ------------------------------------------------------- solve, RANSAC
+def _pairs(jax_feats):
+    stacked, _ = jax_feats
+    jab, _ = jmatcher.match_features_bidir(
+        _jfeat(_feat(stacked, 0)), _jfeat(_feat(stacked, 1)), 0.5, "l1",
+        512, "off", "exact")
+    arrs = [np.array(a) for a in jab]
+    return jab, MatchPairs(*(T(a) for a in arrs))
+
+
+def test_solve_warp(jax_feats):
+    """Minimal 4-point solves (batched) and the weighted warm-started
+    refit: coefficients rtol 1e-4. The 4-point samples take one point per
+    quadrant of the matched region: a near-collinear sample is
+    ill-conditioned, and any f32 reordering moves its solution."""
+    jp, tp = _pairs(jax_feats)
+    n = int(tp.valid.sum())
+    src, dst = tp.src_xy.numpy()[:n], tp.dst_xy.numpy()[:n]
+    right = src[:, 0] > np.median(src[:, 0])
+    low = src[:, 1] > np.median(src[:, 1])
+    quads = [np.flatnonzero((right == a) & (low == b))
+             for a in (False, True) for b in (False, True)]
+    rng = np.random.default_rng(3)
+    idx = np.stack([[rng.choice(q) for q in quads] for _ in range(16)])
+    jc = jax.vmap(jsolve.solve_warp)(jnp.asarray(src[idx]),
+                                     jnp.asarray(dst[idx]))
+    tc = tsolve.solve_warp(T(src[idx]), T(dst[idx]))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4,
+                               atol=1e-5)
+    w = (np.arange(n) % 3 != 0).astype(np.float32)
+    jr = jsolve.solve_warp(jnp.asarray(src), jnp.asarray(dst),
+                           jnp.asarray(w), init=jc[0])
+    tr = tsolve.solve_warp(T(src), T(dst), T(w), init=tc[0])
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("gate", [False, True])
+def test_ransac_warp(jax_feats, gate):
+    """Same MatchPairs and key: coefficients rtol 1e-4, equal inlier
+    masks and counts (with and without the corner gate)."""
+    jp, tp = _pairs(jax_feats)
+    key = jax.random.fold_in(jax.random.PRNGKey(666666), jnp.uint32(1))
+    tkey = trng.fold_in(trng.prng_key(666666), 1)
+    corner = span = None
+    if gate:
+        corner = np.array([[0, 0], [159, 0], [0, 159], [159, 159]],
+                          np.float32)
+        span = 4.0 * np.hypot(160.0, 160.0)
+    jc, jm, jn = jransac.ransac_warp(
+        jp, key, 64, 4.0, 4, "bilinear", 1,
+        None if corner is None else jnp.asarray(corner), span)
+    tc, tm, tn = transac.ransac_warp(
+        tp, tkey, 64, 4.0, 4, "bilinear", 1,
+        None if corner is None else T(corner), span)
+    assert int(tn) == int(np.asarray(jn)) > 8
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_plan_edges_on_jax_features(jax_feats):
+    """The whole edge plan fed the JAX package's own features: equal
+    canvas dims, min_x / min_y within 0.5 px, coefficients rtol 1e-3."""
+    stacked, img_hw = jax_feats
+    edges = [(1, 2, 1), (1, 0, 2)]
+    jplan = np.asarray(jreg.plan_edges(
+        _jfeat(stacked), jnp.asarray(np.asarray(edges, np.int32)), img_hw,
+        img_hw, CFG))
+    tplan = treg.plan_edges(features_from_numpy(stacked, "cpu"), edges,
+                            img_hw, img_hw, CFG)
+    assert tplan.shape == jplan.shape == (2, treg.PLAN_ROW)
+    np.testing.assert_array_equal(tplan[:, 20:], jplan[:, 20:])
+    np.testing.assert_allclose(tplan[:, 18:20], jplan[:, 18:20], atol=0.5)
+    np.testing.assert_allclose(tplan[:, :18], jplan[:, :18], rtol=1e-3,
+                               atol=1e-5)
+    # a sane chain: the canvas grows by about one crop step per edge
+    assert 160 <= jplan[-1, 20] <= 360 and jplan[-1, 21] <= 200

@@ -1,0 +1,93 @@
+"""The PyTorch port's slice boundary: the configuration switches it
+refuses, the device it refuses without a GPU, and a whole stitch in a
+fresh interpreter that loads no jax.
+"""
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from computervisionimagestich2_tpu_torch import SLICE_CONFIG, check_supported
+from computervisionimagestich2_tpu_torch.models.stitcher import (
+    Stitcher as TStitcher)
+from test_torch_stitch import SMALL_SLICE
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+_NO_JAX = textwrap.dedent("""
+    import sys
+    import numpy as np
+    from computervisionimagestich2_tpu_torch import SLICE_CONFIG
+    from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+    import dataclasses as dc
+    rng = np.random.default_rng(0)
+    img = rng.uniform(60, 200, (120, 200, 3))
+    ys, xs = np.mgrid[0:120, 0:200]
+    for _ in range(20):
+        cy, cx, r = rng.uniform(10, 110), rng.uniform(10, 190), rng.uniform(3, 9)
+        img[(ys - cy) ** 2 + (xs - cx) ** 2 < r * r] = rng.uniform(0, 255, 3)
+    img = img.astype(np.uint8)
+    cfg = dc.replace(SLICE_CONFIG, sift=dc.replace(SLICE_CONFIG.sift,
+        n_octaves=2, max_keypoints_per_octave=512, max_keypoints=1024))
+    out = Stitcher(cfg, device="cpu").stitch([img[:, :120], img[:, 80:]])
+    assert out.dtype == np.uint8 and out.ndim == 3, out.shape
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib"))
+    assert not loaded, loaded
+    print("NO_JAX_OK", out.shape)
+""")
+
+
+def test_slice_runs_without_jax():
+    """The port never imports jax: a whole stitch in a fresh interpreter
+    leaves no jax module loaded."""
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
+
+
+def test_cuda_request_raises_without_gpu():
+    """device="cuda" on a host with no GPU raises; nothing falls back to
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TStitcher(SMALL_SLICE, device="cuda")
+
+
+@pytest.mark.parametrize("change", [
+    dict(ordering="graph"),
+    dict(sift=dataclasses.replace(SLICE_CONFIG.sift, detect_impl="pallas")),
+    dict(match=dataclasses.replace(SLICE_CONFIG.match, method="l2pre")),
+    dict(planned=False),
+    dict(exact_canvas=False),
+    dict(warp_model="projective"),
+    dict(blend=dataclasses.replace(SLICE_CONFIG.blend, blur_impl="vanvliet")),
+    dict(sift=dataclasses.replace(SLICE_CONFIG.sift, o_min=-1)),
+    dict(color_transfer=True),
+    dict(blend=dataclasses.replace(SLICE_CONFIG.blend, gain_compensation=True,
+                                   gain_mode="luma")),
+])
+def test_outside_the_slice_raises(change):
+    cfg = dataclasses.replace(SLICE_CONFIG, **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_supported(cfg)
+    with pytest.raises(NotImplementedError):
+        TStitcher(cfg, device="cpu")
+
+
+def test_slice_config_is_supported_and_mixed_shapes_raise():
+    check_supported(SLICE_CONFIG)
+    assert SLICE_CONFIG.ordering == "chain"
+    assert SLICE_CONFIG.sift.detect_impl == "xla"
+    assert SLICE_CONFIG.match.method == "exact"
+    rgb = np.zeros((40, 40, 3), np.uint8)
+    with pytest.raises(NotImplementedError, match="A12"):
+        TStitcher(SMALL_SLICE, device="cpu").prepare([rgb, rgb[:, :30]])
