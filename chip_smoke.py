@@ -6,24 +6,36 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It drives ``computervisionimagestich2_tpu_torch``'s main path
-(``Stitcher(SLICE_CONFIG, device="cuda").stitch``) in phases and prints one
-JSON line per phase with its result and seconds:
+(``Stitcher(DEFAULT_CONFIG, device="cuda").stitch``: graph ordering, the
+fused detect) and the chain slice in phases, and prints one JSON line per
+phase with its result and seconds:
 
 1. environment: a CUDA device, its name and power limit (nvidia-smi);
-2. build: the CUDA kernels, compiled from ``csrc/`` with nvcc;
-3. a cold stitch of four synthetic 512x384 portrait images that records
-   the inputs of each kernel's first call on the main path; then every
-   kernel against its plain PyTorch version on those inputs, on the card,
-   with the time of each;
-4. warm stitches of the same images: each kernel's launch count in one
-   run (every kernel must have launched), the median time of three runs,
-   and agreement with the CPU run of the port (plain versions);
-5. the same pipeline on four 1440x1080 images (the north-star size,
-   where the bf16 blend and the seam-band gates engage).
+2. build: the CUDA kernels, compiled from ``csrc/`` with nvcc (one process
+   per source, in parallel);
+3. a cold default-path stitch of four synthetic 512x384 portrait crops
+   handed over in scrambled order; graph discovery must find the scene's
+   chain. It records the inputs of each kernel's first call, then every
+   kernel is held against its plain PyTorch version on those inputs, on
+   the card, with the time of each;
+4. warm default-path stitches of the same images: each kernel's launch
+   count in one run (all six must have launched), the median time of three
+   runs with the stage times, and agreement with the CPU run of the port
+   (plain versions);
+5. the chain slice (``SLICE_CONFIG``) on the crops in scene order: one cold
+   and one warm run, the CPU-canvas check, and no launch of the fused
+   detect (B1) or the pair counts (B5);
+6. the matcher API (kernel B7): ``match_features`` and ``match_count`` on
+   two feature sets of phase 4, ``match_features`` against the first
+   direction of ``match_features_bidir``, and the kernel against its plain
+   version on a reference mask with a hole inside the live prefix;
+7. the default path on four scrambled 1440x1080 images (the north-star
+   size): canvas, discovered edges and start, SIFT and match telemetry,
+   cold and warm times, stage times and peak device memory.
 
-The line before the last is the per-kernel JSON summary, the last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without a CUDA device it exits 1 and prints no result.
+The line before the last is the per-kernel JSON summary (B1-B7), the last
+line ``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero; without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -38,21 +50,28 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# name -> (route, source, replaced Pallas call site)
+CSRC = "computervisionimagestich2_tpu_torch/csrc/"
+TPU_OPS = "computervisionimagestich2_tpu/ops/"
+# name -> (id, route, source, replaced Pallas call site)
 KERNELS = {
+    "detect_compact": (
+        "B1", "cuda", CSRC + "detect.cu", TPU_OPS + "pallas_detect.py:168"),
     "sift_orientation_hist": (
-        "cuda", "computervisionimagestich2_tpu_torch/csrc/sift_walks.cu",
-        "computervisionimagestich2_tpu/ops/pallas_sift.py:491"),
+        "B2", "cuda", CSRC + "sift_walks.cu", TPU_OPS + "pallas_sift.py:491"),
     "sift_descriptors": (
-        "cuda", "computervisionimagestich2_tpu_torch/csrc/sift_walks.cu",
-        "computervisionimagestich2_tpu/ops/pallas_sift.py:356"),
+        "B3", "cuda", CSRC + "sift_walks.cu", TPU_OPS + "pallas_sift.py:356"),
     "l1_two_nearest": (
-        "cuda", "computervisionimagestich2_tpu_torch/csrc/l1_2nn.cu",
-        "computervisionimagestich2_tpu/ops/pallas_distance.py:209"),
+        "B4", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:209"),
+    "pair_match_counts": (
+        "B5", "cuda", CSRC + "pair_counts.cu",
+        TPU_OPS + "pallas_distance.py:431"),
     "warp_image": (
-        "cuda", "computervisionimagestich2_tpu_torch/csrc/warp.cu",
-        "computervisionimagestich2_tpu/ops/pallas_warp.py:237"),
+        "B6", "cuda", CSRC + "warp.cu", TPU_OPS + "pallas_warp.py:237"),
+    "l1_two_nearest_one_direction": (
+        "B7", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:283"),
 }
+CHAIN_OFF_PATH = {"detect_compact", "pair_match_counts"}
+SCRAMBLE = [2, 0, 3, 1]  # scene position of each image handed over
 
 
 def emit(phase: str, t0: float, **kv) -> dict:
@@ -97,6 +116,10 @@ def crops(h: int, w: int, step: int, scale: int, seed: int):
             for i in range(4)]
 
 
+def scrambled(images):
+    return [images[k] for k in SCRAMBLE]
+
+
 def cuda_ms(fn, reps: int = 10) -> float:
     """Mean device time of one call (CUDA events, after one warm-up)."""
     import torch
@@ -119,13 +142,16 @@ class Recorder:
 
     def __init__(self):
         from computervisionimagestich2_tpu_torch.models import compose
-        from computervisionimagestich2_tpu_torch.ops import distance
-        from computervisionimagestich2_tpu_torch.ops import sift_walks
+        from computervisionimagestich2_tpu_torch.ops import (detect, distance,
+                                                             sift_walks)
 
-        self.sites = {"sift_orientation_hist": (sift_walks, "orientation_hist"),
-                      "sift_descriptors": (sift_walks, "descriptors"),
-                      "l1_two_nearest": (distance, "two_nearest"),
-                      "warp_image": (compose, "warp_image")}
+        self.sites = {
+            "detect_compact": (detect, "detect_compact"),
+            "sift_orientation_hist": (sift_walks, "orientation_hist"),
+            "sift_descriptors": (sift_walks, "descriptors"),
+            "l1_two_nearest": (distance, "two_nearest"),
+            "pair_match_counts": (distance, "pair_match_counts"),
+            "warp_image": (compose, "warp_image")}
         self.args: dict[str, tuple] = {}
         self._orig = {}
 
@@ -145,25 +171,85 @@ class Recorder:
             setattr(mod, attr, self._orig[name])
 
 
+def record_ordering(stitcher) -> dict:
+    """Keep the adjacency and start image that graph discovery finds."""
+    seen = {}
+    graph, middle = stitcher._match_graph, stitcher._middle_index
+
+    def match_graph():
+        adj = graph()
+        seen["adj"] = [row[:] for row in adj]  # bfs_edge_seq consumes adj
+        return adj
+
+    def middle_index(adj):
+        seen["start"] = middle(adj)
+        return seen["start"]
+
+    stitcher._match_graph, stitcher._middle_index = match_graph, middle_index
+    return seen
+
+
+def check_chain(seen: dict) -> list:
+    """Graph discovery on the scrambled crops must find the scene's chain:
+    three edges, each between crops that neighbour in the scene."""
+    adj = seen["adj"]
+    edges = sorted({tuple(sorted((i, j))) for i, row in enumerate(adj)
+                    for j, a in enumerate(row) if a})
+    assert len(edges) == 3, edges
+    assert all(abs(SCRAMBLE[i] - SCRAMBLE[j]) == 1 for i, j in edges), edges
+    return [list(e) for e in edges]
+
+
+def near_ratio(desc, valid, pairs, ratio: float) -> list:
+    """Per pair and direction, the valid queries whose plain d1 / d2 lies
+    within 1e-5 of the ratio: the only ones whose decision a different
+    summation order may flip."""
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    near = []
+    for i, j in pairs.tolist():
+        row = []
+        for q, r in ((j, i), (i, j)):
+            d1, d2, _ = distance.two_nearest_plain(desc[q], desc[r],
+                                                   valid[q], valid[r])
+            row.append(int((valid[q] & ((d1 / d2 - ratio).abs() < 1e-5))
+                           .sum()))
+        near.append(row)
+    return near
+
+
 def check_kernels(args: dict) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
-    inputs, both on the card. Tolerances: B2 raw histograms rtol 1e-5
-    (atol 1e-5 x max), B3 atol 2e-6, B4 d1/d2 rtol 1e-5 with i1 equal
-    where the 2-NN gap exceeds 1e-4 d1, B6 exact."""
+    inputs, both on the card. Tolerances: B1 exact (coords, valid,
+    n_total); B2 raw histograms rtol 1e-5 (atol 1e-5 x max), B3 atol 2e-6,
+    B4 d1/d2 rtol 1e-5 with i1 equal where the 2-NN gap exceeds 1e-4 d1;
+    B5 exact counts, short of the queries within 1e-5 of the ratio; B6
+    exact."""
     import torch
 
-    from computervisionimagestich2_tpu_torch.ops import distance, sift_walks
-    from computervisionimagestich2_tpu_torch.ops import warp
+    from computervisionimagestich2_tpu_torch.ops import (detect, distance,
+                                                         sift_walks, warp)
 
     rows = []
 
     def add(name, err, kern, plain, **extra):
-        route, source, replaces = KERNELS[name]
-        rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "max_abs_err": float(err),
-                     "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-                     **extra})
+        kid, route, source, replaces = KERNELS[name]
+        rows.append({"name": name, "id": kid, "route": route,
+                     "source": source, "replaces": replaces,
+                     "max_abs_err": float(err), "ms": cuda_ms(kern),
+                     "plain_ms": cuda_ms(plain), **extra})
         print(json.dumps({"kernel_check": rows[-1]}), flush=True)
+
+    a = args["detect_compact"]
+    ck, vk, nk = detect.detect_compact(*a)
+    cp, vp, np_ = detect.detect_compact_plain(*a)
+    assert torch.equal(ck, cp) and torch.equal(vk, vp), "B1 must be exact"
+    assert int(nk) == int(np_), (int(nk), int(np_))
+    add("detect_compact", (ck - cp).abs().max(),
+        lambda: detect.detect_compact(*a),
+        lambda: detect.detect_compact_plain(*a),
+        dog=list(a[0].shape), capacity=a[2], candidates=int(vk.sum()),
+        n_total=int(nk))
 
     a = args["sift_orientation_hist"]
     hk, okk = sift_walks.orientation_hist(*a)
@@ -200,6 +286,24 @@ def check_kernels(args: dict) -> list[dict]:
         queries=int(live.sum()), references=int(a[3].sum()),
         i1_equal_frac=float((i1k[live] == i1p[live]).float().mean()))
 
+    a = args["pair_match_counts"]
+    pk = distance.pair_match_counts(*a)
+    pp = distance.pair_match_counts_plain(*a)
+    diff = (pk - pp).abs()
+    near = None
+    if not torch.equal(pk, pp):
+        near = near_ratio(*a)
+        print(json.dumps({"b5_differs": {"kernel": pk.tolist(),
+                                         "plain": pp.tolist(),
+                                         "near_ratio": near}}), flush=True)
+        assert (diff.cpu() <= torch.tensor(near)).all(), "B5 disagrees"
+    add("pair_match_counts", diff.max(),
+        lambda: distance.pair_match_counts(*a),
+        lambda: distance.pair_match_counts_plain(*a),
+        images=int(a[0].shape[0]), slots=int(a[0].shape[1]),
+        live=a[1].sum(dim=1).tolist(), pairs=a[2].tolist(),
+        counts=pk.tolist(), near_ratio=near)
+
     a = args["warp_image"]
     wk = warp.warp_image(*a)
     wp = warp.warp_image_plain(*a)
@@ -208,6 +312,73 @@ def check_kernels(args: dict) -> list[dict]:
         lambda: warp.warp_image(*a), lambda: warp.warp_image_plain(*a),
         canvas=list(a[4]))
     return rows
+
+
+def check_matcher(feats_a, feats_b) -> dict:
+    """Phase 6: kernel B7 through the matcher API. Returns its kernels
+    row (launches = the l1_two_nearest launches of match_features +
+    match_count)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.models import matcher
+    from computervisionimagestich2_tpu_torch.ops import _native, distance
+
+    _native.reset_launch_counts()
+    pairs = matcher.match_features(feats_a, feats_b)
+    n = matcher.match_count(feats_a, feats_b)
+    torch.cuda.synchronize()
+    launches = _native.launch_counts()["l1_two_nearest"]
+    assert launches == 2, launches
+    ab, _ = matcher.match_features_bidir(feats_a, feats_b)
+    assert all(torch.equal(x, y) for x, y in zip(pairs, ab)), \
+        "match_features(a, b) != match_features_bidir(a, b)[0]"
+    assert int(n) == int(pairs.n_raw) > 20, (int(n), int(pairs.n_raw))
+
+    # the repaired fault: a hole in the reference mask inside the live
+    # prefix, and invalid queries inside the query prefix
+    qry, ref = feats_b.desc, feats_a.desc
+    qv, rv = feats_b.valid.clone(), feats_a.valid.clone()
+    rv[10:30] = False
+    qv[5:9] = False
+    a = (qry, ref, qv, rv)
+    d1k, d2k, i1k = distance.two_nearest(*a)
+    d1p, d2p, i1p = distance.two_nearest_plain(*a)
+    torch.testing.assert_close(d1k[qv], d1p[qv], rtol=1e-5, atol=0)
+    torch.testing.assert_close(d2k[qv], d2p[qv], rtol=1e-5, atol=0)
+    clear = qv & ((d2p - d1p) > 1e-4 * d1p)
+    assert torch.equal(i1k[clear], i1p[clear])
+    assert not ((i1k >= 10) & (i1k < 30) & qv).any(), "masked row won"
+    assert (d1k[~qv] > 1e37).all() and (d2k[~qv] > 1e37).all()
+    kid, route, source, replaces = KERNELS["l1_two_nearest_one_direction"]
+    m = (feats_b.desc, feats_a.desc, feats_b.valid, feats_a.valid)
+    row = {"name": "l1_two_nearest_one_direction", "id": kid,
+           "route": route, "source": source, "replaces": replaces,
+           "launches": launches,
+           "max_abs_err": float((d1k[qv] - d1p[qv]).abs().max()),
+           "ms": cuda_ms(lambda: distance.two_nearest(*m)),
+           "plain_ms": cuda_ms(lambda: distance.two_nearest_plain(*m)),
+           "queries": int(feats_b.valid.sum()),
+           "references": int(feats_a.valid.sum()),
+           "masked_references": int((~rv[:int(feats_a.valid.sum())]).sum()),
+           "matches": int(pairs.n_raw),
+           "i1_equal_frac": float((i1k[qv] == i1p[qv]).float().mean())}
+    print(json.dumps({"kernel_check": row}), flush=True)
+    return row
+
+
+def canvas_vs_cpu(out, out_cpu) -> float:
+    """Shape within +-3 px and MAD <= 3 u8 levels over the common canvas
+    (the end-to-end gate of tests/test_torch_stitch.py)."""
+    assert abs(out.shape[0] - out_cpu.shape[0]) <= 3, (out.shape,
+                                                       out_cpu.shape)
+    assert abs(out.shape[1] - out_cpu.shape[1]) <= 3, (out.shape,
+                                                       out_cpu.shape)
+    h = min(out.shape[0], out_cpu.shape[0])
+    w = min(out.shape[1], out_cpu.shape[1])
+    mad = float(np.abs(out[:h, :w].astype(np.int64)
+                       - out_cpu[:h, :w].astype(np.int64)).mean())
+    assert mad <= 3.0, mad
+    return mad
 
 
 def run(stitcher, images):
@@ -224,7 +395,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from computervisionimagestich2_tpu_torch import SLICE_CONFIG
+    from computervisionimagestich2_tpu_torch import (DEFAULT_CONFIG,
+                                                     SLICE_CONFIG)
+    from computervisionimagestich2_tpu_torch.core.types import Features
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
     from computervisionimagestich2_tpu_torch.ops import _native
 
@@ -241,17 +414,23 @@ def main() -> int:
     lib = _native.build()
     emit("build", t, library=str(lib.relative_to(ROOT)))
 
-    # -- 3. cold run at 4 x 512x384, recording the kernels' inputs
+    # -- 3. cold default path at 4 x 512x384, scrambled, recording inputs
     t = time.perf_counter()
-    images = crops(512, 384, 224, 2, seed=0)
-    st = stm.Stitcher(SLICE_CONFIG, device="cuda")
+    scene_order = crops(512, 384, 224, 2, seed=0)
+    images = scrambled(scene_order)
+    st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
+    seen = record_ordering(st)
     with Recorder() as rec:
         out_cold, cold_s = run(st, images)
-    assert set(rec.args) == set(KERNELS), sorted(rec.args)
+    assert set(rec.args) == set(rec.sites), sorted(rec.args)
+    edges = check_chain(seen)
+    emit("default_512x384_cold", t, cold_s=cold_s, scramble=SCRAMBLE,
+         edges=edges, start=seen["start"], canvas=list(out_cold.shape))
+    t = time.perf_counter()
     kernels = check_kernels(rec.args)
     emit("kernels_vs_plain", t, checked=[k["name"] for k in kernels])
 
-    # -- 4. warm runs: launch counts of one run, median of three
+    # -- 4. warm default path: launch counts of one run, median of three
     t = time.perf_counter()
     _native.reset_launch_counts()
     out, t1 = run(st, images)
@@ -262,29 +441,47 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     missing = [n for n, c in launches.items() if c == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
+    assert stages["ordering"] > 0, stages
     t_cpu = time.perf_counter()
-    out_cpu = stm.Stitcher(SLICE_CONFIG, device="cpu").stitch(images)
+    out_cpu = stm.Stitcher(DEFAULT_CONFIG, device="cpu").stitch(images)
     cpu_s = time.perf_counter() - t_cpu
-    h = min(out.shape[0], out_cpu.shape[0])
-    w = min(out.shape[1], out_cpu.shape[1])
-    mad = float(np.abs(out[:h, :w].astype(np.int64)
-                       - out_cpu[:h, :w].astype(np.int64)).mean())
-    assert abs(out.shape[0] - out_cpu.shape[0]) <= 3, (out.shape,
-                                                       out_cpu.shape)
-    assert abs(out.shape[1] - out_cpu.shape[1]) <= 3, (out.shape,
-                                                       out_cpu.shape)
-    assert mad <= 3.0, mad
+    mad = canvas_vs_cpu(out, out_cpu)
     assert 700 <= out.shape[1] <= 1400 and out.shape[0] <= 700, out.shape
-    emit("slice_512x384", t, images=[list(i.shape) for i in images],
-         canvas=list(out.shape), cold_s=cold_s, warm_median_s=
-         statistics.median(warm), warm_s=warm, stage_s=stages,
-         launches=launches, warm_equals_cold=bool(np.array_equal(
-             out, out_cold)), cpu_canvas=list(out_cpu.shape), cpu_s=cpu_s,
-         mad_vs_cpu=mad)
+    emit("default_512x384_warm", t, images=[list(i.shape) for i in images],
+         canvas=list(out.shape), warm_median_s=statistics.median(warm),
+         warm_s=warm, stage_s=stages, launches=launches,
+         warm_equals_cold=bool(np.array_equal(out, out_cold)),
+         cpu_canvas=list(out_cpu.shape), cpu_s=cpu_s, mad_vs_cpu=mad)
+    feats = st._matching_feats()
 
-    # -- 5. north-star size 4 x 1440x1080
+    # -- 5. the chain slice (SLICE_CONFIG), scene order
     t = time.perf_counter()
-    images = crops(1440, 1080, 630, 6, seed=1)
+    st_chain = stm.Stitcher(SLICE_CONFIG, device="cuda")
+    out_chain, chain_cold_s = run(st_chain, scene_order)
+    _native.reset_launch_counts()
+    out_chain, chain_warm_s = run(st_chain, scene_order)
+    chain_launches = _native.launch_counts()
+    wrong = [n for n, c in chain_launches.items()
+             if (c == 0) != (n in CHAIN_OFF_PATH)]
+    assert not wrong, f"chain slice launches: {chain_launches}"
+    out_chain_cpu = stm.Stitcher(SLICE_CONFIG, device="cpu").stitch(
+        scene_order)
+    chain_mad = canvas_vs_cpu(out_chain, out_chain_cpu)
+    emit("chain_512x384", t, canvas=list(out_chain.shape),
+         cold_s=chain_cold_s, warm_s=chain_warm_s,
+         stage_s=dict(st_chain.stage_times), launches=chain_launches,
+         mad_vs_cpu=chain_mad)
+
+    # -- 6. matcher API (B7) on two neighbouring crops of phase 4
+    t = time.perf_counter()
+    a, b = SCRAMBLE.index(0), SCRAMBLE.index(1)
+    kernels.append(check_matcher(
+        Features(*(x[a] for x in feats)), Features(*(x[b] for x in feats))))
+    emit("matcher_api", t, images=[a, b])
+
+    # -- 7. north-star size 4 x 1440x1080, scrambled, default path
+    t = time.perf_counter()
+    images = scrambled(crops(1440, 1080, 630, 6, seed=1))
     telemetry = {}
     sift_fn, plan_fn = stm.sift_extract_stats, stm.plan_edges
 
@@ -298,24 +495,32 @@ def main() -> int:
         telemetry["match_dropped"] = plan[:, 22].astype(int).tolist()
         return plan
 
+    torch.cuda.reset_peak_memory_stats()
     stm.sift_extract_stats, stm.plan_edges = sift_rec, plan_rec
     try:
-        st = stm.Stitcher(SLICE_CONFIG, device="cuda")
+        st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
+        seen = record_ordering(st)
         out_big, cold_s = run(st, images)
     finally:
         stm.sift_extract_stats, stm.plan_edges = sift_fn, plan_fn
+    edges = check_chain(seen)
     stages_big = dict(st.stage_times)
+    _native.reset_launch_counts()
     warm = [run(st, images)[1] for _ in range(3)]
+    launches_big = {k: c // 3 for k, c in _native.launch_counts().items()}
     assert out_big.dtype == np.uint8 and out_big.shape[2] == 3
     assert 2000 <= out_big.shape[1] <= 4000, out_big.shape
     assert out_big.shape[0] <= 2000, out_big.shape
     assert out_big.mean() > 20, "empty canvas"
-    emit("north_star_1440x1080", t, images=[list(i.shape) for i in images],
+    emit("default_1440x1080", t, images=[list(i.shape) for i in images],
+         scramble=SCRAMBLE, edges=edges, start=seen["start"],
          canvas=list(out_big.shape), cold_s=cold_s,
          warm_median_s=statistics.median(warm), warm_s=warm,
-         stage_s=stages_big, **telemetry,
+         stage_s_cold=stages_big, stage_s_warm=dict(st.stage_times),
+         launches_per_run=launches_big, **telemetry,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
+    assert len(kernels) == len(KERNELS), [k["name"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,

@@ -6,11 +6,13 @@ package stays the reference; every function here has a counterpart of the
 same name at the same place in its layout (``core/``, ``ops/``,
 ``models/``, ``utils/``).
 
-This package covers one slice of the JAX package's main path, the
-chain-ordered planned stitch (``config.SLICE_CONFIG``); ``check_supported``
-names what lies outside it. The package imports ``torch`` and never
-``jax``. Kernels are compiled with ``nvcc`` at first use on a CUDA tensor
-(``ops/_native.py``); nothing is built or loaded at import.
+This package covers the JAX package's main path, ``DEFAULT_CONFIG``
+(graph ordering, the fused detect, exact L1 matching — what the JAX
+package runs off a TPU), and the chain-ordered ``config.SLICE_CONFIG``;
+``check_supported`` names what lies outside them. The package imports
+``torch`` and never ``jax``. Kernels are compiled with ``nvcc`` at first
+use on a CUDA tensor (``ops/_native.py``); nothing is built or loaded at
+import.
 """
 from .config import (  # noqa: F401
     DEFAULT_CONFIG,

@@ -1,14 +1,21 @@
-"""Configuration: the JAX package's dataclasses, plus the port's slice.
+"""Configuration: the JAX package's dataclasses, plus the chain slice.
 
 ``computervisionimagestich2_tpu.config`` imports no JAX, so the port reuses
 it rather than copying it; a ``StitchConfig`` built for either package is
 valid for both.
 
-``SLICE_CONFIG`` is the part of the main path this package implements:
-chain ordering, the dense (non-fused) extrema detect, and exact L1
-matching, everything else at its default. ``check_supported`` raises
-``NotImplementedError`` for any switch outside it, naming the ROADMAP item
-that ports it.
+The port runs ``DEFAULT_CONFIG`` (graph ordering, the fused detect, exact
+L1 matching) and ``SLICE_CONFIG``, the chain-ordered path with the dense
+(non-fused) detect that was ported first. ``check_supported`` raises
+``NotImplementedError`` for any switch outside them, naming the ROADMAP
+item that ports it.
+
+``match.method="auto"`` resolves to exact L1 here. That is what the JAX
+package itself picks on any backend other than a TPU
+(``computervisionimagestich2_tpu/ops/distance.py::_l2pre_enabled``); on a
+TPU its default would be the MXU-prefiltered ``"l2pre"``, which the port
+does not implement (A14). So the port's default follows the JAX package's
+CPU and GPU decisions, not its TPU ones.
 """
 from __future__ import annotations
 
@@ -34,12 +41,10 @@ SLICE_CONFIG = dataclasses.replace(
 
 
 def check_supported(cfg: StitchConfig) -> None:
-    """Raise NotImplementedError if ``cfg`` leaves the ported slice."""
+    """Raise NotImplementedError if ``cfg`` leaves the ported
+    configurations."""
     unsupported = [
-        (cfg.ordering != "chain", "ordering='graph'", "A6 (with kernel B5)"),
-        (cfg.sift.detect_impl != "xla", "sift.detect_impl='pallas'",
-         "B1 (fused detect)"),
-        (cfg.match.method != "exact", "match.method='l2pre'/'auto'", "A14"),
+        (cfg.match.method == "l2pre", "match.method='l2pre'", "A14"),
         (cfg.match.distance != "l1", "match.distance='l2'", "A14"),
         (not cfg.planned, "planned=False", "A12"),
         (not cfg.exact_canvas, "exact_canvas=False", "A12"),
@@ -56,4 +61,5 @@ def check_supported(cfg: StitchConfig) -> None:
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(
-                f"{what} is outside the ported slice; see ROADMAP.md {item}")
+                f"{what} is outside the ported configurations; see "
+                f"ROADMAP.md {item}")

@@ -1,13 +1,25 @@
 // Plain C interface of the port's CUDA kernels (bound with ctypes from
 // ops/_native.py). Every function launches on `stream`, does not
 // synchronise, allocates nothing, and returns the launch's cudaError_t.
-// Pointers are device pointers to contiguous float32 / int32 arrays.
+// Pointers are device pointers to contiguous float32 / int32 arrays; masks
+// are bool arrays (one byte per entry), coordinates int64.
 #pragma once
 #include <cuda_runtime.h>
 
 #ifdef __cplusplus
 extern "C" {
 #endif
+
+// B1: strict 26-neighbour extrema of dog [s_out + 2, h, w] at |v| >= gate,
+// as scan-order (s, y, x) rows of coords [capacity, 3] with valid
+// [capacity]; each image row keeps its first 128 hits. n_total: [1], the
+// uncapped hit count. Scratch: row_lists [s_out * h, 128], row_counts
+// [s_out * h]. Two launches.
+cudaError_t cvs_detect_compact(const float* dog, int s_out, int h, int w,
+                               float gate, int capacity, int* row_lists,
+                               int* row_counts, long long* coords,
+                               unsigned char* valid, int* n_total,
+                               cudaStream_t stream);
 
 // B2: raw [n, 36] orientation histograms over one gradient level
 // (mod, ang: [h, w]); x, y, sigma: [n] octave-local; n_valid: [1] live count.
@@ -25,12 +37,24 @@ cudaError_t cvs_descriptors(const float* mod, const float* ang, int h, int w,
                             float magnif, float window_size, float* desc,
                             cudaStream_t stream);
 
-// B4 (one direction): for each of the nb query rows of qry [nb, 128], the
-// two smallest L1 distances to the reference rows of ref [*, 128] and the
-// index of the nearest. counts: [2] = {live queries, live references}.
+// B4 / B7 (one direction): for each of the nb query rows of qry [nb, 128]
+// with qry_valid set, the two smallest L1 distances to the rows of ref
+// [na, 128] with ref_valid set and the index of the nearest; d1 = d2 = BIG
+// and i1 = 0 for the other queries.
 cudaError_t cvs_l1_two_nearest(const float* qry, const float* ref,
-                               const int* counts, int nb, float* d1,
-                               float* d2, int* i1, cudaStream_t stream);
+                               const unsigned char* qry_valid,
+                               const unsigned char* ref_valid, int nb, int na,
+                               float* d1, float* d2, int* i1,
+                               cudaStream_t stream);
+
+// B5: Lowe-ratio match counts out [n_pairs, 2] (zeroed by the caller) over
+// desc [n, cap, 128] with valid [n, cap]; pairs [n_pairs, 2] = (i, j).
+// out[p, 0]: queries = image j against references = image i; out[p, 1]:
+// the reverse.
+cudaError_t cvs_pair_match_counts(const float* desc,
+                                  const unsigned char* valid, int cap,
+                                  const int* pairs, int n_pairs, float ratio,
+                                  int* out, cudaStream_t stream);
 
 // B6: inverse warp of src [src_h, src_w, channels] onto out
 // [h_out, w_out, channels]; params: [10] = 8 bilinear coefficients,

@@ -11,9 +11,49 @@ from __future__ import annotations
 
 import torch
 
+from ..config import MatchConfig
 from ..core.types import Features, MatchPairs
 from ..ops import distance as dist_ops
 from ..ops.compaction import compact_indices
+
+
+def _check_distance(distance: str) -> None:
+    if distance != "l1":
+        raise NotImplementedError(
+            f"distance={distance!r} is outside the ported configurations; "
+            "see ROADMAP.md A14")
+
+
+def match_features(feats_a: Features, feats_b: Features,
+                   ratio: float = 0.5, distance: str = "l1",
+                   max_matches: int = 2048) -> MatchPairs:
+    """Pairs with src = A's keypoint, dst = B's keypoint for each of B's
+    descriptors that passes the ratio test against A (the reference's
+    ImgPair(left, right) order, ImageProcess.cpp:341): one direction of
+    ``match_features_bidir``, whose first result it equals. Kernel B7 on
+    CUDA tensors."""
+    _check_distance(distance)
+    ok, idx_a = dist_ops.ratio_match(feats_b.desc, feats_a.desc,
+                                     feats_b.valid, feats_a.valid, ratio)
+    sel, valid = compact_indices(ok, max_matches)
+    return MatchPairs(src_xy=feats_a.xy[idx_a[sel]], dst_xy=feats_b.xy[sel],
+                      valid=valid, n_raw=ok.sum(dtype=torch.int32))
+
+
+def match_count(feats_a: Features, feats_b: Features, ratio: float = 0.5,
+                distance: str = "l1") -> torch.Tensor:
+    """Number of ratio-test matches, an int32 device scalar (the
+    match-graph edge weight, ImageProcess.cpp:131-135)."""
+    _check_distance(distance)
+    ok, _ = dist_ops.ratio_match(feats_b.desc, feats_a.desc, feats_b.valid,
+                                 feats_a.valid, ratio)
+    return ok.sum(dtype=torch.int32)
+
+
+def match_config_call(feats_a: Features, feats_b: Features,
+                      cfg: MatchConfig) -> MatchPairs:
+    return match_features(feats_a, feats_b, cfg.ratio_threshold,
+                          cfg.distance, cfg.max_matches)
 
 
 def match_features_bidir(feats_a: Features, feats_b: Features,
@@ -34,4 +74,3 @@ def match_features_bidir(feats_a: Features, feats_b: Features,
                     dst_xy=feats_a.xy[sel_a], valid=valid_a,
                     n_raw=oka.sum(dtype=torch.int32))
     return ab, ba
-

@@ -6,6 +6,8 @@ direction swap on the uncapped counts (ImageProcess.cpp:185-198), forward
 and backward RANSAC, the canvas bounds, and the feature-coordinate
 updates. ``plan_edges`` runs every edge of the stitch order as a Python
 loop of device work and reads the [E, 23] plan back to the host once.
+``all_pairs_match_counts`` gives graph ordering its [N, N] match counts
+from one launch of kernel B5.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from ..config import StitchConfig
 from ..core.types import Features, MatchPairs
-from ..ops import rng
+from ..ops import distance, rng
 from ..ops.warp import warp_points
 from .matcher import match_features_bidir
 from .ransac import ransac_warp
@@ -133,3 +135,26 @@ def plan_edges(feats_stacked: Features, edges: list[tuple[int, int, int]],
             [min_x, min_y, new_w, new_h, ovf.float()])]))
         cur_w, cur_h = new_w, new_h
     return torch.stack(rows).cpu().numpy()
+
+
+def all_pairs_match_counts(desc: torch.Tensor, valid: torch.Tensor,
+                           cfg: StitchConfig) -> torch.Tensor:
+    """Match counts for every ordered image pair (ImageProcess.cpp:117-137).
+
+    desc: [N, CAP, 128] stacked descriptors; valid: [N, CAP]. Returns
+    [N, N] int32 on the device with count[i, j] = |getImgPair(i, j)|
+    (queries = j's descriptors against i's reference set); the diagonal is
+    0. Both directions of every i<j pair come from one call of
+    ``distance.pair_match_counts`` (kernel B5 on CUDA tensors)."""
+    n = desc.shape[0]
+    out = torch.zeros((n, n), dtype=torch.int32, device=desc.device)
+    if n <= 1:
+        return out
+    pairs = torch.tensor([(i, j) for i in range(n) for j in range(i + 1, n)],
+                         dtype=torch.int32, device=desc.device)
+    counts = distance.pair_match_counts(desc, valid, pairs,
+                                        cfg.match.ratio_threshold)
+    i, j = pairs[:, 0].long(), pairs[:, 1].long()
+    out[i, j] = counts[:, 0]
+    out[j, i] = counts[:, 1]
+    return out

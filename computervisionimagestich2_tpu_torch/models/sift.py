@@ -9,10 +9,11 @@ of tensor work with static capacities and validity masks.
 
 The structure follows the JAX package's non-bucketed branch: one walk
 radius per level, so keypoints keep the order of the JAX path on the CPU
-(that order decides which pairs RANSAC samples). The orientation and
-descriptor walks go through ``ops.sift_walks`` (kernels B2 and B3 on a
-CUDA tensor). Live counts stay on the device: nothing here waits for the
-host.
+(that order decides which pairs RANSAC samples). Detection is the dense
+mask (``detect_impl="xla"``) or the fused detect of ``ops.detect``
+(``"pallas"``, kernel B1 on a CUDA tensor); the orientation and descriptor
+walks go through ``ops.sift_walks`` (kernels B2 and B3 on a CUDA
+tensor). Live counts stay on the device: nothing here waits for the host.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import torch
 
 from ..config import SiftConfig
 from ..core.types import Features
+from ..ops import detect, sift_walks
 from ..ops import sift_kernels as sk
-from ..ops import sift_walks
 from ..ops.compaction import compact_indices, select_strongest
 from ..ops.gaussian import gaussian_blur
 from ..ops.resize import vlfeat_downsample
@@ -91,11 +92,21 @@ def _process_octave(octave: torch.Tensor, cfg: SiftConfig,
     cap_kp = keypoint_capacity(h, w, cfg.max_keypoints_per_octave)
 
     dog = sk.dog_stack(octave)
-    mask = sk.extrema_mask(dog, cfg.peak_thresh)
-    coords, cvalid = sk.compact_mask(mask, cap_cand)
-    n_cand = mask.sum(dtype=torch.int32)
-    # telemetry: candidates dropped by the static capacity
-    cand_dropped = torch.clamp(n_cand - cap_cand, min=0)
+    if cfg.detect_impl == "pallas":
+        # fused detect (kernel B1 on a CUDA tensor): the dense path's
+        # coords / valid, plus a per-row cap of 128 hits
+        coords, cvalid, n_cand = detect.detect_compact(dog, cfg.peak_thresh,
+                                                       cap_cand)
+        # dropped = uncapped hits minus kept slots: covers both the capacity
+        # and the per-row cap, so no truncation goes unreported
+        cand_dropped = torch.clamp(n_cand - cvalid.sum(dtype=torch.int32),
+                                   min=0)
+    else:
+        mask = sk.extrema_mask(dog, cfg.peak_thresh)
+        coords, cvalid = sk.compact_mask(mask, cap_cand)
+        n_cand = mask.sum(dtype=torch.int32)
+        # telemetry: candidates dropped by the static capacity
+        cand_dropped = torch.clamp(n_cand - cap_cand, min=0)
     ok, x, y, sigma, lvl, resp = sk.refine_keypoints(
         dog, coords, cvalid, w, h, cfg.peak_thresh, cfg.edge_thresh,
         cfg.s_min, cfg.s_max, xper, cfg.sigma0, cfg.n_levels)

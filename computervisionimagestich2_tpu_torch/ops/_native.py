@@ -2,10 +2,11 @@
 
 The kernels expose a plain C interface (``csrc/api.h``): each function
 launches on the stream it is given and returns the launch's
-``cudaError_t``. They are compiled with ``nvcc`` for ``sm_90a`` into one
-shared library at first use — never at import — under ``build/torch_kernels/``
-at the root of the checkout, keyed by a hash of the sources and flags, and
-loaded with ``ctypes``.
+``cudaError_t``. They are compiled with ``nvcc`` for ``sm_90a`` at first
+use — never at import — one ``nvcc`` per source, all started together, and
+linked into one shared library under ``build/torch_kernels/`` at the root
+of the checkout, keyed by a hash of the sources and flags, and loaded with
+``ctypes``.
 
 ``--fmad=false`` keeps every float multiply and add separately rounded, as
 PyTorch's elementwise ops and XLA compute them: the warp truncates
@@ -30,25 +31,33 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("sift_walks.cu", "l1_2nn.cu", "warp.cu")
+SOURCES = ("detect.cu", "sift_walks.cu", "l1_2nn.cu", "pair_counts.cu",
+           "warp.cu")
+HEADERS = ("api.h", "l1.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"sift_orientation_hist": 0, "sift_descriptors": 0,
-            "l1_two_nearest": 0, "warp_image": 0}
+LAUNCHES = {"detect_compact": 0, "sift_orientation_hist": 0,
+            "sift_descriptors": 0, "l1_two_nearest": 0,
+            "pair_match_counts": 0, "warp_image": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
+    # (dog, s_out, h, w, gate, capacity, row_lists, row_counts, coords,
+    #  valid, n_total, stream)
+    "cvs_detect_compact": (_P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P),
     # (mod, ang, h, w, x, y, sigma, n_valid, n, radius, hist, stream)
     "cvs_orientation_hist": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
     # (mod, ang, h, w, x, y, sigma, angle, n_valid, n, radius, magnif,
     #  window_size, desc, stream)
     "cvs_descriptors": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F,
                         _P, _P),
-    # (qry, ref, counts, nb, d1, d2, i1, stream)
-    "cvs_l1_two_nearest": (_P, _P, _P, _I, _P, _P, _P, _P),
+    # (qry, ref, qry_valid, ref_valid, nb, na, d1, d2, i1, stream)
+    "cvs_l1_two_nearest": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # (desc, valid, cap, pairs, n_pairs, ratio, out, stream)
+    "cvs_pair_match_counts": (_P, _P, _I, _P, _I, _F, _P, _P),
     # (src, src_h, src_w, channels, params, h_out, w_out, out, stream)
     "cvs_warp_image": (_P, _I, _I, _I, _P, _I, _I, _P, _P),
 }
@@ -84,28 +93,42 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in ("api.h",) + SOURCES:
+    for name in HEADERS + SOURCES:
         h.update((CSRC / name).read_bytes())
     return build_dir() / h.hexdigest()[:16] / "libcvs_kernels.so"
 
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
-    Returns its path. The build writes to a temporary name and renames it
-    into place, so a concurrent process never loads a partial file."""
+    Returns its path. The build works in a temporary directory and renames
+    the library into place, so a concurrent process never loads a partial
+    file."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+             str(CSRC / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        errors = []
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 

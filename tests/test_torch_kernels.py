@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from computervisionimagestich2_tpu_torch import SLICE_CONFIG
+from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG, SLICE_CONFIG
 from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
-from computervisionimagestich2_tpu_torch.ops import _native
+from computervisionimagestich2_tpu_torch.ops import _native, detect, distance
 from computervisionimagestich2_tpu_torch.ops import warp as twarp
 
 T = torch.as_tensor
@@ -42,6 +42,63 @@ def _walk_inputs(seed=12, h=96, w=80, n=48, nv=31):
     return mod, ang, x, y, sig, a0, np.array([nv], np.int32)
 
 
+def _dog_inputs():
+    """(dog, peak_thresh, capacity) cases of kernel B1: random DoG stacks
+    (tests/test_pallas_sift.py:116-163, including a binding capacity) and
+    one row of 298 strict extrema, more than the 128 a row keeps."""
+    rng = np.random.default_rng(11)
+    cases = [(rng.normal(size=(4, h, w)).astype(np.float32) * 2, 1.0, 512)
+             for h, w in ((64, 96), (61, 130), (33, 40))]
+    rng = np.random.default_rng(5)
+    cases.append((rng.normal(size=(4, 48, 64)).astype(np.float32) * 3, 0.5,
+                  8))
+    cases.append((row_overflow_dog(), 1.0, 512))
+    return cases
+
+
+def row_overflow_dog(w=300):
+    """A DoG stack whose level-1 row 3 alternates +-5 over width ``w`` and
+    is zero elsewhere: every interior x of that row is a strict maximum or
+    minimum, so the row holds w - 2 hits."""
+    dog = np.zeros((4, 8, w), np.float32)
+    dog[1, 3] = np.where(np.arange(w) % 2 == 0, 5.0, -5.0)
+    return dog
+
+
+def _pair_inputs(asymmetric=False):
+    """tests/test_pallas_distance.py:115-136: four images of 256 slots with
+    lives 200/130/256/77 and two clustered pairs. ``asymmetric`` adds ten
+    second copies of matched references to image 1: they pass as queries
+    against image 0 but make the ratio test fail the other way, so the
+    two columns differ and a swapped (i, j) shows."""
+    rng = np.random.default_rng(0)
+    n, cap, f = 4, 256, 128
+    desc = rng.random(size=(n, cap, f)).astype(np.float32)
+    desc[1, :50] = desc[0, 10:60] + rng.normal(size=(50, f)) * 1e-3
+    desc[3, :40] = desc[2, 5:45] + rng.normal(size=(40, f)) * 1e-3
+    if asymmetric:
+        desc[1, 60:70] = desc[0, 10:20] + rng.normal(size=(10, f)) * 1e-3
+    valid = np.stack([np.arange(cap) < nv for nv in (200, 130, 256, 77)])
+    pairs = np.asarray([(i, j) for i in range(n) for j in range(i + 1, n)],
+                       np.int32)
+    return desc, valid, pairs
+
+
+def _masked_2nn_inputs():
+    """tests/test_pallas_distance.py:13-26 (a hole in the reference mask
+    inside the live prefix), plus invalid queries inside the query
+    prefix."""
+    rng = np.random.default_rng(0)
+    qry = rng.normal(size=(256, 128)).astype(np.float32)
+    ref = rng.normal(size=(512, 128)).astype(np.float32)
+    qv = np.ones(256, bool)
+    qv[[3, 40, 41, 200]] = False
+    qv[250:] = False
+    rv = np.ones(512, bool)
+    rv[100:120] = False
+    return qry, ref, qv, rv
+
+
 def _scene(seed=0, h=120, w=200):
     """Noise plus solid discs: enough texture for SIFT and RANSAC."""
     rng = np.random.default_rng(seed)
@@ -63,6 +120,11 @@ def test_cpu_tensors_take_the_plain_version():
     coef = T(np.array([1, 0, 0, 0, 0, 1, 0, 0], np.float32))
     out = twarp.warp_image(src, coef, 0.0, 0.0, (20, 20))
     torch.testing.assert_close(out, src)
+    dog, tp, cap = _dog_inputs()[0]
+    detect.detect_compact(T(dog), tp, cap)
+    desc, valid, pairs = _pair_inputs()
+    distance.pair_match_counts(T(desc), T(valid), T(pairs))
+    distance.ratio_match(T(desc[0]), T(desc[1]), T(valid[0]), T(valid[1]))
     assert _native.launch_counts() == dict.fromkeys(_native.LAUNCHES, 0)
 
 
@@ -133,19 +195,80 @@ def test_kernel_b4_b6_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_slice_on_card_goes_through_the_kernels(cuda_device):
-    """A small stitch on the card launches every kernel and gives the
+@pytest.mark.parametrize("i", range(5))
+def test_kernel_b1_matches_plain(cuda_device, i):
+    """B1 exact against its plain version: coords, valid and n_total,
+    including a binding capacity and a row past the per-row cap."""
+    dog, tp, cap = _dog_inputs()[i]
+    cc, vc, nc = detect.detect_compact(T(dog), tp, cap)
+    cg, vg, ng = detect.detect_compact(T(dog).to(cuda_device), tp, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(cg.cpu(), cc) and torch.equal(vg.cpu(), vc)
+    assert int(ng) == int(nc)
+    if i == 4:
+        assert int(nc) == 298 and int(vc.sum()) == 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_kernel_b5_matches_plain_and_b4(cuda_device, asymmetric):
+    """B5 counts exact against the plain per-pair loop, and equal to the
+    counts of two B4 launches per pair on the card (one shared L1 loop)."""
+    desc, valid, pairs = _pair_inputs(asymmetric)
+    plain = distance.pair_match_counts(T(desc), T(valid), T(pairs))
+    d, v, p = (T(a).to(cuda_device) for a in (desc, valid, pairs))
+    got = distance.pair_match_counts(d, v, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), plain), (got, plain)
+    assert int(plain[:, 0].max()) > 0 and int(plain[:, 1].max()) > 0
+    for k, (i, j) in enumerate(pairs.tolist()):
+        okq, _, okr, _ = distance.ratio_match_bidir(d[j], d[i], v[j], v[i])
+        assert [int(okq.sum()), int(okr.sum())] == got[k].tolist()
+
+
+@pytest.mark.cuda
+def test_kernel_b7_honours_masks(cuda_device):
+    """B7 on masks with holes inside the live prefix: d1 / d2 rtol 1e-5
+    against the plain version, i1 equal where the 2-NN gap exceeds
+    1e-4 d1, and invalid queries at BIG."""
+    qry, ref, qv, rv = _masked_2nn_inputs()
+    d1c, d2c, i1c = distance.two_nearest(T(qry), T(ref), T(qv), T(rv))
+    d1g, d2g, i1g = distance.two_nearest(
+        *(T(a).to(cuda_device) for a in (qry, ref, qv, rv)))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(d1g.cpu().numpy(), d1c.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(d2g.cpu().numpy(), d2c.numpy(), rtol=1e-5)
+    clear = qv & ((d2c - d1c) > 1e-4 * d1c).numpy()
+    np.testing.assert_array_equal(i1g.cpu().numpy()[clear],
+                                  i1c.numpy()[clear])
+    assert not np.isin(i1g.cpu().numpy()[qv], np.arange(100, 120)).any()
+    assert (d1g.cpu().numpy()[~qv] > 1e37).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["default", "slice"])
+def test_slice_on_card_goes_through_the_kernels(cuda_device, config):
+    """A small stitch on the card launches every kernel of its path (all
+    six under DEFAULT_CONFIG; no B1 / B5 on the chain slice) and gives the
     canvas of the CPU run: shape within +-3 px, MAD <= 3 u8 levels (the
     end-to-end gate of tests/test_torch_stitch.py)."""
     img = _scene()
-    crops = [img[:, :120], img[:, 80:]]
-    cfg = dataclasses.replace(SLICE_CONFIG, sift=dataclasses.replace(
-        SLICE_CONFIG.sift, n_octaves=2, max_keypoints_per_octave=512,
-        max_keypoints=1024))
+    if config == "default":  # scrambled: graph ordering finds the pair
+        crops = [img[:, 60:], img[:, :140]]
+    else:
+        crops = [img[:, :120], img[:, 80:]]
+    base = DEFAULT_CONFIG if config == "default" else SLICE_CONFIG
+    cfg = dataclasses.replace(
+        base, sift=dataclasses.replace(
+            base.sift, n_octaves=2, max_keypoints_per_octave=512,
+            max_keypoints=1024),
+        match=dataclasses.replace(base.match, pair_threshold=5))
     _native.reset_launch_counts()
     out = Stitcher(cfg, device=cuda_device).stitch(crops)
     counts = _native.launch_counts()
-    assert all(c > 0 for c in counts.values()), counts
+    off_path = set() if config == "default" else {"detect_compact",
+                                                   "pair_match_counts"}
+    assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
     ref = Stitcher(cfg, device="cpu").stitch(crops)
     assert abs(out.shape[0] - ref.shape[0]) <= 3, (out.shape, ref.shape)
     assert abs(out.shape[1] - ref.shape[1]) <= 3, (out.shape, ref.shape)

@@ -1,5 +1,6 @@
-"""PyTorch port vs the JAX package: matching (plain version of kernel B4),
-the threefry generator, the warp solver, RANSAC and the edge plan.
+"""PyTorch port vs the JAX package: matching (plain version of kernels B4
+and B7), the threefry generator, the warp solver, RANSAC and the edge
+plan.
 
 The descriptor sets are the JAX package's own SIFT features of
 ``make_scene`` crops, carried into the port with ``features_from_numpy``.
@@ -20,7 +21,7 @@ from computervisionimagestich2_tpu.models.stitcher import Stitcher as JStitcher
 from computervisionimagestich2_tpu.ops import distance as jdist
 from computervisionimagestich2_tpu.ops import solve as jsolve
 from computervisionimagestich2_tpu.ops.pallas_distance import (
-    two_nearest_l1_bidir_pallas)
+    two_nearest_l1_bidir_pallas, two_nearest_l1_pallas)
 from computervisionimagestich2_tpu_torch import SLICE_CONFIG
 from computervisionimagestich2_tpu_torch.core.types import (
     Features, MatchPairs, features_from_numpy, features_to_numpy)
@@ -130,6 +131,91 @@ def test_match_features_bidir_equal(jax_feats):
                                       np.asarray(j.src_xy)[v])
         np.testing.assert_array_equal(t.dst_xy.numpy()[v],
                                       np.asarray(j.dst_xy)[v])
+
+
+def _pallas_distance_case(case):
+    """The inputs of tests/test_pallas_distance.py:13-60 and the Pallas
+    tiling each uses: a hole in the reference mask, invalid queries, and
+    live prefixes."""
+    rng = np.random.default_rng(0)
+    nb, na, f = (128, 256, 64) if case == "invalid_queries" else (256, 512,
+                                                                   128)
+    qry = rng.normal(size=(nb, f)).astype(np.float32)
+    ref = rng.normal(size=(na, f)).astype(np.float32)
+    qv, rv = np.ones(nb, bool), np.ones(na, bool)
+    tiles = dict(tb=128, ta=128, kc=32)
+    if case == "ref_mask_hole":
+        rv[100:120] = False
+        tiles["ta"] = 256
+    elif case == "invalid_queries":
+        qv[10:] = False
+    else:
+        qv, rv = np.arange(nb) < 130, np.arange(na) < 200
+    return (qry, ref, qv, rv), tiles
+
+
+@pytest.mark.parametrize("case", ["ref_mask_hole", "invalid_queries",
+                                  "live_prefix"])
+def test_two_nearest_matches_one_direction_pallas(case):
+    """Plain version of B7 vs two_nearest_l1_pallas(interpret=True): d1/d2
+    rtol 1e-5 on valid queries, i1 equal, invalid queries at BIG; masked
+    references never win."""
+    args, tiles = _pallas_distance_case(case)
+    d1t, d2t, i1t = tdist.two_nearest(*(T(a) for a in args))
+    d1j, d2j, i1j = two_nearest_l1_pallas(*args, **tiles, interpret=True)
+    qv, rv = args[2], args[3]
+    np.testing.assert_allclose(d1t.numpy()[qv], np.asarray(d1j)[qv],
+                               rtol=1e-5)
+    np.testing.assert_allclose(d2t.numpy()[qv], np.asarray(d2j)[qv],
+                               rtol=1e-5)
+    np.testing.assert_array_equal(i1t.numpy()[qv], np.asarray(i1j)[qv])
+    assert (d1t.numpy()[~qv] > 1e37).all() and (d2t.numpy()[~qv] > 1e37).all()
+    assert rv[i1t.numpy()[qv]].all()
+
+
+def test_ratio_match_and_matcher_api_match_jax(jax_feats):
+    """B7's callers: ratio_match, match_features, match_count and
+    match_config_call against the JAX functions (pallas="off",
+    method="exact"): equal masks, indices, pairs and n_raw."""
+    stacked, _ = jax_feats
+    fa, fb = _feat(stacked, 0), _feat(stacked, 1)
+    ok_t, i1_t = tdist.ratio_match(T(fb[0]), T(fa[0]), T(fb[3]), T(fa[3]))
+    ok_j, i1_j = jdist.ratio_match(fb[0], fa[0], fb[3], fa[3], 0.5, "l1",
+                                   "off", "exact")
+    ok_j = np.asarray(ok_j)
+    np.testing.assert_array_equal(ok_t.numpy(), ok_j)
+    np.testing.assert_array_equal(i1_t.numpy()[ok_j], np.asarray(i1_j)[ok_j])
+
+    ta, tb = features_from_numpy(fa, "cpu"), features_from_numpy(fb, "cpu")
+    jp = jmatcher.match_features(_jfeat(fa), _jfeat(fb), 0.5, "l1", 512,
+                                 "off", "exact")
+    mcfg = dataclasses.replace(CFG.match, max_matches=512)
+    for tp in (tmatcher.match_features(ta, tb, 0.5, "l1", 512),
+               tmatcher.match_config_call(ta, tb, mcfg)):
+        assert int(tp.n_raw) == int(np.asarray(jp.n_raw)) > 10
+        np.testing.assert_array_equal(tp.valid.numpy(), np.asarray(jp.valid))
+        v = tp.valid.numpy()
+        np.testing.assert_array_equal(tp.src_xy.numpy()[v],
+                                      np.asarray(jp.src_xy)[v])
+        np.testing.assert_array_equal(tp.dst_xy.numpy()[v],
+                                      np.asarray(jp.dst_xy)[v])
+    jn = jmatcher.match_count(_jfeat(fa), _jfeat(fb), 0.5, "l1", "off",
+                              "exact")
+    assert int(tmatcher.match_count(ta, tb)) == int(np.asarray(jn))
+    with pytest.raises(NotImplementedError, match="A14"):
+        tmatcher.match_features(ta, tb, distance="l2")
+
+
+def test_match_features_is_first_direction_of_bidir(jax_feats):
+    """match_features(a, b) equals match_features_bidir(a, b)[0], as the
+    JAX docstring promises (models/matcher.py:55-57)."""
+    stacked, _ = jax_feats
+    ta = features_from_numpy(_feat(stacked, 1), "cpu")
+    tb = features_from_numpy(_feat(stacked, 2), "cpu")
+    one = tmatcher.match_features(ta, tb)
+    ab, _ = tmatcher.match_features_bidir(ta, tb)
+    for x, y in zip(one, ab):
+        assert torch.equal(x, y)
 
 
 def test_features_numpy_round_trip(jax_feats):

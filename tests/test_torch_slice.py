@@ -1,6 +1,7 @@
-"""The PyTorch port's slice boundary: the configuration switches it
-refuses, the device it refuses without a GPU, and a whole stitch in a
-fresh interpreter that loads no jax.
+"""The PyTorch port's boundary: the configuration switches it accepts
+and refuses, the device it refuses without a GPU, and whole stitches (the
+chain slice and the default graph path) in a fresh interpreter that loads
+no jax.
 """
 import dataclasses
 import subprocess
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from computervisionimagestich2_tpu_torch import SLICE_CONFIG, check_supported
+from computervisionimagestich2_tpu_torch import (
+    DEFAULT_CONFIG, SLICE_CONFIG, check_supported)
 from computervisionimagestich2_tpu_torch.models.stitcher import (
     Stitcher as TStitcher)
 from test_torch_stitch import SMALL_SLICE
@@ -23,7 +25,7 @@ REPO = Path(__file__).resolve().parents[1]
 _NO_JAX = textwrap.dedent("""
     import sys
     import numpy as np
-    from computervisionimagestich2_tpu_torch import SLICE_CONFIG
+    from computervisionimagestich2_tpu_torch import {config}
     from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
     import dataclasses as dc
     rng = np.random.default_rng(0)
@@ -33,9 +35,10 @@ _NO_JAX = textwrap.dedent("""
         cy, cx, r = rng.uniform(10, 110), rng.uniform(10, 190), rng.uniform(3, 9)
         img[(ys - cy) ** 2 + (xs - cx) ** 2 < r * r] = rng.uniform(0, 255, 3)
     img = img.astype(np.uint8)
-    cfg = dc.replace(SLICE_CONFIG, sift=dc.replace(SLICE_CONFIG.sift,
-        n_octaves=2, max_keypoints_per_octave=512, max_keypoints=1024))
-    out = Stitcher(cfg, device="cpu").stitch([img[:, :120], img[:, 80:]])
+    cfg = dc.replace({config}, sift=dc.replace({config}.sift,
+        n_octaves=2, max_keypoints_per_octave=512, max_keypoints=1024),
+        match=dc.replace({config}.match, pair_threshold=5))
+    out = Stitcher(cfg, device="cpu").stitch({crops})
     assert out.dtype == np.uint8 and out.ndim == 3, out.shape
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib"))
@@ -44,13 +47,24 @@ _NO_JAX = textwrap.dedent("""
 """)
 
 
-def test_slice_runs_without_jax():
-    """The port never imports jax: a whole stitch in a fresh interpreter
-    leaves no jax module loaded."""
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+def _run_without_jax(config: str, crops: str):
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX.format(config=config, crops=crops)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+def test_slice_runs_without_jax():
+    """The port never imports jax: a whole stitch of the chain slice in a
+    fresh interpreter leaves no jax module loaded."""
+    _run_without_jax("SLICE_CONFIG", "[img[:, :120], img[:, 80:]]")
+
+
+def test_default_path_runs_without_jax():
+    """The same for the default configuration: graph ordering over
+    scrambled crops and the fused detect."""
+    _run_without_jax("DEFAULT_CONFIG", "[img[:, 60:], img[:, :140]]")
 
 
 def test_cuda_request_raises_without_gpu():
@@ -63,8 +77,8 @@ def test_cuda_request_raises_without_gpu():
 
 
 @pytest.mark.parametrize("change", [
-    dict(ordering="graph"),
-    dict(sift=dataclasses.replace(SLICE_CONFIG.sift, detect_impl="pallas")),
+    dict(match=dataclasses.replace(SLICE_CONFIG.match, distance="l2")),
+    dict(sift=dataclasses.replace(SLICE_CONFIG.sift, walk_dtype="bf16")),
     dict(match=dataclasses.replace(SLICE_CONFIG.match, method="l2pre")),
     dict(planned=False),
     dict(exact_canvas=False),
@@ -81,6 +95,21 @@ def test_outside_the_slice_raises(change):
         check_supported(cfg)
     with pytest.raises(NotImplementedError):
         TStitcher(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cfg", [
+    dataclasses.replace(SLICE_CONFIG, ordering="graph"),
+    dataclasses.replace(SLICE_CONFIG, sift=dataclasses.replace(
+        SLICE_CONFIG.sift, detect_impl="pallas")),
+    dataclasses.replace(SLICE_CONFIG, match=dataclasses.replace(
+        SLICE_CONFIG.match, method="auto")),
+    DEFAULT_CONFIG,
+], ids=["graph", "fused_detect", "method_auto", "default_config"])
+def test_default_path_switches_are_accepted(cfg):
+    """The default configuration's switches are ported: graph ordering,
+    the fused detect and method="auto" (exact L1 off a TPU)."""
+    check_supported(cfg)
+    assert TStitcher(cfg, device="cpu").config is cfg
 
 
 def test_slice_config_is_supported_and_mixed_shapes_raise():
