@@ -31,7 +31,29 @@ phase with its result and seconds:
    version on a reference mask with a hole inside the live prefix;
 7. the default path on four scrambled 1440x1080 images (the north-star
    size): canvas, discovered edges and start, SIFT and match telemetry,
-   cold and warm times, stage times and peak device memory.
+   cold and warm times, stage times and peak device memory;
+8. the command line (``python -m computervisionimagestich2_tpu_torch.cli
+   --timing``, bucketed canvases by default) on the crops of phase 3 as
+   1.bmp..4.bmp, in a subprocess that must load no jax: its stage and total
+   seconds, its launches, and its panorama against the in-process
+   ``Stitcher`` under the same configuration (and its distance from phase
+   4's exact-canvas panorama);
+9. the incremental stitch (``planned=False``) against phase 4's planned
+   canvas, bucketed canvases (``exact_canvas=False``) beside exact ones, a
+   dump and a resume that must be bit-identical, and the incremental
+   bucketed canvas against the CPU run of the port on the same features;
+10. four crops of mixed shapes, scrambled: graph discovery from B4 per pair
+   (B5 must not launch) and the incremental stitch, against the CPU run;
+11. ``StreamingStitcher`` (BASELINE config 5): 10 frames at 1280x720 and 8
+   at 1920x1080 panning by 1/8 of the frame width, per-frame ``push()``
+   latency (median and worst after the first two frames, split into sift,
+   register and composite + blend), keyframe switches, the canvas (on the
+   bucket grid, at most 4096 wide) and the launches per frame (B5 never);
+   at 720p the canvas of the first two frames against the CPU run of the
+   port.
+
+In phases 4, 5 and 8-11 every launch count is set to 0 just before the
+path runs and read just after; each path must launch each of its kernels.
 
 The line before the last is the per-kernel JSON summary (B1-B7), the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -176,8 +198,8 @@ def record_ordering(stitcher) -> dict:
     seen = {}
     graph, middle = stitcher._match_graph, stitcher._middle_index
 
-    def match_graph():
-        adj = graph()
+    def match_graph(*args):
+        adj = graph(*args)
         seen["adj"] = [row[:] for row in adj]  # bfs_edge_seq consumes adj
         return adj
 
@@ -381,10 +403,257 @@ def canvas_vs_cpu(out, out_cpu) -> float:
     return mad
 
 
-def run(stitcher, images):
+def run(stitcher, images, **kw):
     t = time.perf_counter()
-    out = stitcher.stitch(images)
+    out = stitcher.stitch(images, **kw)
     return out, time.perf_counter() - t
+
+
+def check_launches(launches: dict, off_path=()) -> dict:
+    """Every kernel of the path launched; none off it."""
+    wrong = {n: c for n, c in launches.items()
+             if (c == 0) != (n in off_path)}
+    assert not wrong, f"launches {launches}, off the path: {sorted(off_path)}"
+    return launches
+
+
+def counted_run(stitcher, images, **kw):
+    """One run with the launch counts set to 0 just before it; returns
+    (panorama, seconds, launches of the run)."""
+    from computervisionimagestich2_tpu_torch.ops import _native
+
+    _native.reset_launch_counts()
+    out, secs = run(stitcher, images, **kw)
+    return out, secs, _native.launch_counts()
+
+
+def one_step(out_a, out_b) -> dict:
+    """tests/test_integration.py:151-154: equal shape, isolated one-step
+    u8 differences only."""
+    assert out_a.shape == out_b.shape, (out_a.shape, out_b.shape)
+    diff = np.abs(out_a.astype(int) - out_b.astype(int))
+    frac = float((diff > 0).mean())
+    assert diff.max() <= 1 and frac < 1e-3, (int(diff.max()), frac)
+    return {"max_diff": int(diff.max()), "diff_frac": frac}
+
+
+def mean_diff(out_a, out_b) -> float:
+    """Mean |diff| in u8 levels between two canvases of one shape."""
+    assert out_a.shape == out_b.shape, (out_a.shape, out_b.shape)
+    return float(np.abs(out_a.astype(int) - out_b.astype(int)).mean())
+
+
+def cli_phase(images, out_exact) -> tuple[dict, np.ndarray]:
+    """Phase 8: the command line in a fresh interpreter on 1.bmp..4.bmp,
+    held against the in-process ``Stitcher`` under the configuration its
+    flags give (``DEFAULT_CONFIG`` with bucketed canvases). ``-X
+    importtime`` lists every module the process imported. Returns the
+    report and the in-process bucketed canvas."""
+    import tempfile
+
+    from computervisionimagestich2_tpu_torch import cli
+    from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+    from computervisionimagestich2_tpu_torch.utils import (load_image,
+                                                           save_image)
+
+    with tempfile.TemporaryDirectory() as d:
+        for k, img in enumerate(images):
+            save_image(f"{d}/{k + 1}.bmp", img)
+        argv = ["--input", d, "--output", f"{d}/out.bmp", "--timing"]
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m",
+             "computervisionimagestich2_tpu_torch.cli"] + argv,
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        out = load_image(f"{d}/out.bmp")
+        cfg = cli.build_config(cli.make_parser().parse_args(argv))
+    assert not cfg.exact_canvas
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert len(imported) > 100, proc.stderr[-2000:]
+    jax_mods = [m for m in imported if m.split(".")[0] in ("jax", "jaxlib")]
+    assert not jax_mods, jax_mods
+    stages, launches, total = {}, None, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("kernel launches:"):
+            launches = json.loads(line.split(":", 1)[1])
+        elif line.startswith("total time:"):
+            total = float(line.split(":")[1].split()[0])
+        elif line.endswith(" s") and ":" in line:
+            name, secs = line.split(":")
+            stages[name] = float(secs.split()[0])
+    assert total is not None and launches is not None, proc.stdout
+    check_launches(launches)
+    st = Stitcher(cfg, device="cuda")
+    _, cold_s = run(st, images)
+    out_b, warm_s, launches_b = counted_run(st, images)
+    check_launches(launches_b)
+    return {"canvas": list(out.shape), "total_s": total, "stage_s": stages,
+            "subprocess_wall_s": wall, "launches": launches,
+            "modules_imported": len(imported), "jax_modules": len(jax_mods),
+            "mad_vs_stitcher": canvas_vs_cpu(out, out_b),
+            "equals_stitcher": bool(np.array_equal(out, out_b)),
+            "stitcher_cold_s": cold_s, "stitcher_warm_s": warm_s,
+            "stitcher_launches": launches_b,
+            "stitcher_stage_s": dict(st.stage_times),
+            "mean_diff_vs_exact": mean_diff(out_exact, out)}, out_b
+
+
+def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
+    """Phase 9 on the crops of phase 3: the incremental stitch against
+    the planned canvas; bucketed against exact canvases (enhanced, and the
+    blend alone: the padded canvas changes the pyramid's depth, so the two
+    differ everywhere a little, in the JAX package too; the gate is the
+    CPU comparison below); a dump and a resume; the incremental bucketed
+    canvas against the CPU run of the port on the dumped features."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+
+    rep = {}
+    inc = dataclasses.replace(config, planned=False)
+    st = Stitcher(inc, device="cuda")
+    _, rep["incremental_cold_s"] = run(st, images)
+    out_i, rep["incremental_warm_s"], rep["incremental_launches"] = \
+        counted_run(st, images)
+    check_launches(rep["incremental_launches"])
+    rep["incremental_stage_s"] = dict(st.stage_times)
+    rep["incremental_vs_planned"] = one_step(out_planned, out_i)
+
+    rep["bucketed_vs_exact_mean_diff"] = mean_diff(out_planned, out_bucketed)
+    off = dataclasses.replace(config.enhance, enabled=False)
+    raw = [Stitcher(dataclasses.replace(config, enhance=off, exact_canvas=e),
+                    device="cuda").stitch(images) for e in (True, False)]
+    rep["bucketed_vs_exact_blend_mean_diff"] = mean_diff(*raw)
+
+    both = dataclasses.replace(config, planned=False, exact_canvas=False)
+    with tempfile.TemporaryDirectory() as d:
+        out_d, rep["dump_s"] = run(
+            Stitcher(both, device="cuda", artifact_dir=f"{d}/card"), images)
+        st = Stitcher(both, device="cuda", artifact_dir=f"{d}/card")
+        st.prepare = None  # a resume must not run SIFT
+        out_r, rep["resume_s"], rep["resume_launches"] = counted_run(
+            st, images, resume=True)
+        assert np.array_equal(out_d, out_r), "resume is not bit-identical"
+        check_launches(rep["resume_launches"], {
+            "detect_compact", "sift_orientation_hist", "sift_descriptors"})
+        rep["resume_stage_s"] = dict(st.stage_times)
+        shutil.copytree(f"{d}/card", f"{d}/cpu")
+        st = Stitcher(both, device="cpu", artifact_dir=f"{d}/cpu")
+        st.prepare = None
+        t = time.perf_counter()
+        out_c = st.stitch(images, resume=True)
+        rep["cpu_resumed_s"] = time.perf_counter() - t
+    rep["mad_vs_cpu"] = canvas_vs_cpu(out_d, out_c)
+    rep["canvas"] = list(out_d.shape)
+    return rep
+
+
+MIXED_SHAPES = [(512, 384), (500, 384), (512, 360), (480, 384)]
+
+
+def mixed_phase(scene_order, config) -> dict:
+    """Phase 10: the crops of phase 3 cut to four shapes, scrambled."""
+    from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+
+    images = scrambled([np.ascontiguousarray(img[:h, :w]) for img, (h, w)
+                        in zip(scene_order, MIXED_SHAPES)])
+    st = Stitcher(config, device="cuda")
+    seen = record_ordering(st)
+    _, cold_s = run(st, images)
+    edges = check_chain(seen)
+    out, warm_s, launches = counted_run(st, images)
+    assert st._feats_stacked is None
+    check_launches(launches, {"pair_match_counts"})
+    t = time.perf_counter()
+    out_cpu = Stitcher(config, device="cpu").stitch(images)
+    cpu_s = time.perf_counter() - t
+    return {"images": [list(i.shape) for i in images], "edges": edges,
+            "start": seen["start"], "canvas": list(out.shape),
+            "cold_s": cold_s, "warm_s": warm_s,
+            "stage_s": dict(st.stage_times), "launches": launches,
+            "cpu_canvas": list(out_cpu.shape), "cpu_s": cpu_s,
+            "mad_vs_cpu": canvas_vs_cpu(out, out_cpu)}
+
+
+def stream_phase(config, h: int, w: int, n_frames: int, scale: int,
+                 seed: int, cpu_check: bool) -> dict:
+    """Phase 11 at one frame size: ``n_frames`` crops of one scene panning
+    by w / 8, pushed one by one; with ``cpu_check``, the first two frames
+    again through the CPU run of the port, whose canvas the card's must
+    match."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.models import compose
+    from computervisionimagestich2_tpu_torch.models.streaming import (
+        StreamingStitcher)
+    from computervisionimagestich2_tpu_torch.ops import _native
+
+    pan = w // 8
+    scene = make_scene(np.random.default_rng(seed), h,
+                       w + (n_frames - 1) * pan, scale)
+    frames = [np.ascontiguousarray(scene[:, i * pan:i * pan + w])
+              for i in range(n_frames)]
+
+    def stream(device):
+        return StreamingStitcher(config, max_width=4096, project=True,
+                                 anchor="keyframe", device=device)
+
+    ss = stream("cuda")
+    per = []
+    _native.reset_launch_counts()
+    before = _native.launch_counts()
+    for f in frames:
+        t = time.perf_counter()
+        hw = ss.push(f)
+        secs = time.perf_counter() - t
+        now = _native.launch_counts()
+        per.append({"push_s": secs, "stage_s": dict(ss.stage_times),
+                    "canvas": list(hw),
+                    "launches": {k: now[k] - before[k] for k in now}})
+        before = now
+    launches = _native.launch_counts()
+    check_launches(launches, {"pair_match_counts"})
+    canvas = ss.canvas()
+    assert canvas.dtype == np.uint8 and canvas.shape[2] == 3
+    # every canvas after the first frame lies on the bucket grid, the
+    # rolling window holds the width at max_width
+    for p in per[1:]:
+        ch, cw = p["canvas"]
+        assert ch == compose.bucket_size(ch, config.canvas_bucket), p
+        assert cw <= 4096, p
+    content = canvas[:h].max(axis=2) > 0
+
+    two, two_s, mad = {}, {}, None
+    for device in ("cuda", "cpu") if cpu_check else ():
+        two[device] = stream(device)
+        t = time.perf_counter()
+        for f in frames[:2]:
+            two[device].push(f)
+        two_s[device] = time.perf_counter() - t
+    if cpu_check:
+        mad = canvas_vs_cpu(two["cuda"].canvas(), two["cpu"].canvas())
+    steady = per[2:]
+
+    def stat(vals):
+        return {"median": statistics.median(vals), "worst": max(vals)}
+
+    return {"frames": n_frames, "frame": [h, w], "pan": pan,
+            "first_push_s": per[0]["push_s"],
+            "push_s": stat([p["push_s"] for p in steady]),
+            **{f"{k}_s": stat([p["stage_s"][k] for p in steady])
+               for k in ("sift", "register", "composite")},
+            "keyframe_switches": ss.n_keyframe_switches,
+            "canvas": list(canvas.shape),
+            "content_cols_top_rows": int(content.any(axis=0).sum()),
+            "launches": launches, "per_frame": per,
+            "two_frames_mad_vs_cpu": mad, "two_frames_s": two_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def main() -> int:
@@ -417,7 +686,7 @@ def main() -> int:
     # -- 3. cold default path at 4 x 512x384, scrambled, recording inputs
     t = time.perf_counter()
     scene_order = crops(512, 384, 224, 2, seed=0)
-    images = scrambled(scene_order)
+    images = images_512 = scrambled(scene_order)
     st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
     seen = record_ordering(st)
     with Recorder() as rec:
@@ -432,9 +701,7 @@ def main() -> int:
 
     # -- 4. warm default path: launch counts of one run, median of three
     t = time.perf_counter()
-    _native.reset_launch_counts()
-    out, t1 = run(st, images)
-    launches = _native.launch_counts()
+    out, t1, launches = counted_run(st, images)
     stages = dict(st.stage_times)
     warm = [t1] + [run(st, images)[1] for _ in range(2)]
     for k in kernels:
@@ -519,6 +786,28 @@ def main() -> int:
          stage_s_cold=stages_big, stage_s_warm=dict(st.stage_times),
          launches_per_run=launches_big, **telemetry,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # -- 8. the command line, default flags (bucketed canvases)
+    t = time.perf_counter()
+    rep, out_bucketed = cli_phase(images_512, out)
+    emit("cli_default_512x384", t, **rep)
+
+    # -- 9. incremental, bucketed, dump and resume on phase 3's crops
+    t = time.perf_counter()
+    emit("incremental_512x384", t, **incremental_phase(
+        images_512, out, out_bucketed, DEFAULT_CONFIG))
+
+    # -- 10. mixed shapes, scrambled
+    t = time.perf_counter()
+    emit("mixed_shapes", t, **mixed_phase(scene_order, DEFAULT_CONFIG))
+
+    # -- 11. streaming, BASELINE config 5 (the CPU check at 720p only: two
+    # 1080p frames take ~100 s on the CPU)
+    for label, size in (("stream_1280x720", (720, 1280, 10, 4, 2, True)),
+                        ("stream_1920x1080", (1080, 1920, 8, 6, 3, False))):
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        emit(label, t, **stream_phase(DEFAULT_CONFIG, *size))
 
     assert len(kernels) == len(KERNELS), [k["name"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)

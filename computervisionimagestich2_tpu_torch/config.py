@@ -6,9 +6,11 @@ valid for both.
 
 The port runs ``DEFAULT_CONFIG`` (graph ordering, the fused detect, exact
 L1 matching) and ``SLICE_CONFIG``, the chain-ordered path with the dense
-(non-fused) detect that was ported first. ``check_supported`` raises
-``NotImplementedError`` for any switch outside them, naming the ROADMAP
-item that ports it.
+(non-fused) detect that was ported first, each with the incremental stitch
+(``planned=False``), bucketed canvases (``exact_canvas=False``) and the
+per-edge color transfer (``color_transfer=True``). ``check_supported``
+raises ``NotImplementedError`` for any switch outside them, naming the
+ROADMAP item that ports it.
 
 ``match.method="auto"`` resolves to exact L1 here. That is what the JAX
 package itself picks on any backend other than a TPU
@@ -46,13 +48,10 @@ def check_supported(cfg: StitchConfig) -> None:
     unsupported = [
         (cfg.match.method == "l2pre", "match.method='l2pre'", "A14"),
         (cfg.match.distance != "l1", "match.distance='l2'", "A14"),
-        (not cfg.planned, "planned=False", "A12"),
-        (not cfg.exact_canvas, "exact_canvas=False", "A12"),
         (cfg.warp_model != "bilinear", "warp_model='projective'", "A13"),
         (cfg.blend.blur_impl != "fir", f"blend.blur_impl="
          f"{cfg.blend.blur_impl!r}", "A13 (vanvliet); fir_fused is TPU-only"),
         (cfg.sift.o_min < 0, "sift.o_min<0", "A13"),
-        (cfg.color_transfer, "color_transfer=True", "A13"),
         (cfg.blend.gain_compensation and cfg.blend.gain_mode == "luma",
          "blend.gain_mode='luma' with gain_compensation", "A13"),
         (cfg.sift.walk_dtype != "f32", "sift.walk_dtype='bf16'",

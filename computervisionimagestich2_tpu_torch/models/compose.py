@@ -3,6 +3,8 @@
 
 - ``canvas_plan`` <- getMin/MaxX/YAfterWarping + the min/max clamps
   (ImageProcess.cpp:206-216, 532-594): host math on 8 floats.
+- ``bucket_size``  pads a canvas extent onto a geometric size grid
+  (``exact_canvas=False`` and the streaming canvas).
 - ``composite``   <- warpingImageByHomography + movingImageByOffset
   (ImageProcess.cpp:596-620): the inverse warp (kernel B6 on CUDA) and the
   offset copy onto one canvas size.
@@ -15,6 +17,16 @@ import numpy as np
 import torch
 
 from ..ops.warp import shift_image, warp_image
+
+
+def bucket_size(v: int, base: int = 128, ratio: float = 1.3) -> int:
+    """Smallest size >= v on the geometric grid base, ceil(base * ratio /
+    base) * base, ...: a chain of N edges then blends O(log) distinct
+    canvas sizes."""
+    s = base
+    while s < v:
+        s = int(math.ceil(s * ratio / base) * base)
+    return s
 
 
 def warp_corners(coeffs: np.ndarray, w: int, h: int) -> np.ndarray:

@@ -79,6 +79,14 @@ def update_features_by_warp(feats: Features, coeffs: torch.Tensor,
                                          dim=-1))
 
 
+def update_features_by_offset(feats: Features, offset_x,
+                              offset_y) -> Features:
+    """updateFeaturesByOffset (ImageProcess.cpp:633-640); the stitch loop
+    passes the int-truncated canvas minima (cpp:227)."""
+    return feats._replace(xy=feats.xy - torch.tensor(
+        [offset_x, offset_y], dtype=torch.float32, device=feats.xy.device))
+
+
 def _canvas_bounds(fwd: torch.Tensor, w_src: int, h_src: int,
                    cur_w, cur_h, model: str):
     """Canvas bounds after warping the source corners

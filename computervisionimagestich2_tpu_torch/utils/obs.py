@@ -5,5 +5,6 @@ from computervisionimagestich2_tpu.utils.obs import (  # noqa: F401
     StageTimer,
     log,
     log_sift_overflow,
+    set_verbose,
     warn,
 )

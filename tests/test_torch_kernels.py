@@ -276,3 +276,68 @@ def test_slice_on_card_goes_through_the_kernels(cuda_device, config):
     mad = np.abs(out[:h, :w].astype(np.int64)
                  - ref[:h, :w].astype(np.int64)).mean()
     assert mad <= 3.0, mad
+
+
+def _small(base):
+    return dataclasses.replace(
+        base, sift=dataclasses.replace(
+            base.sift, n_octaves=2, max_keypoints_per_octave=512,
+            max_keypoints=1024),
+        match=dataclasses.replace(base.match, pair_threshold=5))
+
+
+def _assert_close_canvas(out, ref):
+    """Shape within +-3 px and MAD <= 3 u8 levels over the common canvas
+    (the end-to-end gate of tests/test_torch_stitch.py)."""
+    assert abs(out.shape[0] - ref.shape[0]) <= 3, (out.shape, ref.shape)
+    assert abs(out.shape[1] - ref.shape[1]) <= 3, (out.shape, ref.shape)
+    h, w = min(out.shape[0], ref.shape[0]), min(out.shape[1], ref.shape[1])
+    mad = np.abs(out[:h, :w].astype(np.int64)
+                 - ref[:h, :w].astype(np.int64)).mean()
+    assert mad <= 3.0, mad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", ["uniform", "mixed"])
+def test_incremental_on_card_goes_through_the_kernels(cuda_device, shapes):
+    """The incremental stitch on bucketed canvases (planned=False,
+    exact_canvas=False) over three scrambled crops: uniform shapes launch
+    all six kernels of the default path; mixed shapes take their graph
+    counts from B4 per pair and never launch B5. The canvas is the CPU
+    run's within the end-to-end gate."""
+    img = _scene(w=200)
+    if shapes == "uniform":
+        crops = [img[:, 80:], img[:, :120], img[:, 40:160]]
+    else:
+        crops = [img[:110, 80:], img[:, :120], img[:, 40:156]]
+    cfg = dataclasses.replace(_small(DEFAULT_CONFIG), planned=False,
+                              exact_canvas=False)
+    _native.reset_launch_counts()
+    out = Stitcher(cfg, device=cuda_device).stitch(crops)
+    counts = _native.launch_counts()
+    off_path = set() if shapes == "uniform" else {"pair_match_counts"}
+    assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
+    _assert_close_canvas(out, Stitcher(cfg, device="cpu").stitch(crops))
+
+
+@pytest.mark.cuda
+def test_stream_on_card_goes_through_the_kernels(cuda_device):
+    """Three frames through StreamingStitcher on the card: the stream
+    launches B1-B4 and B6, never B5; the canvas sizes after each frame
+    equal the CPU stream's and the final canvases agree within the
+    end-to-end gate."""
+    from computervisionimagestich2_tpu_torch.models.streaming import (
+        StreamingStitcher)
+
+    img = _scene(w=240)
+    frames = [img[:, i * 50:i * 50 + 140] for i in range(3)]
+    cfg = _small(DEFAULT_CONFIG)
+    ss = StreamingStitcher(cfg, device=cuda_device)
+    _native.reset_launch_counts()
+    sizes = [ss.push(f) for f in frames]
+    counts = _native.launch_counts()
+    assert all((c == 0) == (k == "pair_match_counts")
+               for k, c in counts.items()), counts
+    ref = StreamingStitcher(cfg, device="cpu")
+    assert sizes == [ref.push(f) for f in frames]
+    _assert_close_canvas(ss.canvas(), ref.canvas())

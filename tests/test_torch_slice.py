@@ -80,12 +80,9 @@ def test_cuda_request_raises_without_gpu():
     dict(match=dataclasses.replace(SLICE_CONFIG.match, distance="l2")),
     dict(sift=dataclasses.replace(SLICE_CONFIG.sift, walk_dtype="bf16")),
     dict(match=dataclasses.replace(SLICE_CONFIG.match, method="l2pre")),
-    dict(planned=False),
-    dict(exact_canvas=False),
     dict(warp_model="projective"),
     dict(blend=dataclasses.replace(SLICE_CONFIG.blend, blur_impl="vanvliet")),
     dict(sift=dataclasses.replace(SLICE_CONFIG.sift, o_min=-1)),
-    dict(color_transfer=True),
     dict(blend=dataclasses.replace(SLICE_CONFIG.blend, gain_compensation=True,
                                    gain_mode="luma")),
 ])
@@ -104,19 +101,33 @@ def test_outside_the_slice_raises(change):
     dataclasses.replace(SLICE_CONFIG, match=dataclasses.replace(
         SLICE_CONFIG.match, method="auto")),
     DEFAULT_CONFIG,
-], ids=["graph", "fused_detect", "method_auto", "default_config"])
+    dataclasses.replace(SLICE_CONFIG, planned=False),
+    dataclasses.replace(SLICE_CONFIG, exact_canvas=False),
+    dataclasses.replace(SLICE_CONFIG, color_transfer=True),
+], ids=["graph", "fused_detect", "method_auto", "default_config",
+        "incremental", "bucketed_canvas", "color_transfer"])
 def test_default_path_switches_are_accepted(cfg):
     """The default configuration's switches are ported: graph ordering,
-    the fused detect and method="auto" (exact L1 off a TPU)."""
+    the fused detect and method="auto" (exact L1 off a TPU); so are the
+    incremental stitch, bucketed canvases (the command line's default) and
+    the per-edge color transfer."""
     check_supported(cfg)
     assert TStitcher(cfg, device="cpu").config is cfg
 
 
-def test_slice_config_is_supported_and_mixed_shapes_raise():
+def test_slice_config_is_supported_and_mixed_shapes_prepare():
+    """Images of mixed shapes are prepared one by one, each projected at
+    its own shape, and nothing is stacked for the planned path, even where
+    the feature capacities agree."""
     check_supported(SLICE_CONFIG)
     assert SLICE_CONFIG.ordering == "chain"
     assert SLICE_CONFIG.sift.detect_impl == "xla"
     assert SLICE_CONFIG.match.method == "exact"
-    rgb = np.zeros((40, 40, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="A12"):
-        TStitcher(SMALL_SLICE, device="cpu").prepare([rgb, rgb[:, :30]])
+    rgb = np.random.default_rng(0).integers(0, 256, (40, 40, 3), np.uint8)
+    images = [rgb, rgb[:, :30], rgb[:36]]
+    st = TStitcher(SMALL_SLICE, device="cpu")
+    projected, feats = st.prepare(images)
+    assert [tuple(p.shape) for p in projected] == [i.shape for i in images]
+    assert len(feats) == 3
+    assert len({f.desc.shape for f in feats}) == 1  # one capacity here
+    assert st._feats_stacked is None
