@@ -15,13 +15,20 @@ phase with its result and seconds:
    per source, in parallel);
 3. a cold default-path stitch of four synthetic 512x384 portrait crops
    handed over in scrambled order; graph discovery must find the scene's
-   chain. It records the inputs of each kernel's first call, then every
-   kernel is held against its plain PyTorch version on those inputs, on
-   the card, with the time of each;
+   chain. It records the inputs of every kernel call, then every kernel
+   is held against its plain PyTorch version on the first call's inputs,
+   on the card, with the time of each, of PyTorch's own call for the same
+   function where one exists (``library_ms``, timed here and used nowhere
+   in the port) and of the least time the card could take (the bound,
+   from these inputs: see ``bound``). B2, B3 and B4 must give the same
+   bits twice; B4 the bits of B7 run each way; B5 the ratio counts of B4
+   on every pair;
 4. warm default-path stitches of the same images: each kernel's launch
-   count in one run (all six must have launched), the median time of three
-   runs with the stage times, and agreement with the CPU run of the port
-   (plain versions);
+   count in one run (all six of the path must have launched, B4 once per
+   edge), the median time of three runs with the stage times, agreement
+   with the CPU run of the port (plain versions), and one
+   ``torch.profiler`` pass of a warm run: device time per kernel and per
+   panorama, all launches, the device's busy and idle share;
 5. the chain slice (``SLICE_CONFIG``) on the crops in scene order: one cold
    and one warm run, the CPU-canvas check, and no launch of the fused
    detect (B1) or the pair counts (B5);
@@ -34,7 +41,8 @@ phase with its result and seconds:
    cold and warm times, stage times and peak device memory;
 8. the command line (``python -m computervisionimagestich2_tpu_torch.cli
    --timing``, bucketed canvases by default) on the crops of phase 3 as
-   1.bmp..4.bmp, in a subprocess that must load no jax: its stage and total
+   1.bmp..4.bmp, in a subprocess that must load neither jax nor any module
+   of the JAX package (the port imports none): its stage and total
    seconds, its launches, and its panorama against the in-process
    ``Stitcher`` under the same configuration (and its distance from phase
    4's exact-canvas panorama);
@@ -43,7 +51,8 @@ phase with its result and seconds:
    dump and a resume that must be bit-identical, and the incremental
    bucketed canvas against the CPU run of the port on the same features;
 10. four crops of mixed shapes, scrambled: graph discovery from B4 per pair
-   (B5 must not launch) and the incremental stitch, against the CPU run;
+   (B5 must not launch; B4 once per pair and per edge) and the incremental
+   stitch, against the CPU run;
 11. ``StreamingStitcher`` (BASELINE config 5): 10 frames at 1280x720 and 8
    at 1920x1080 panning by 1/8 of the frame width, per-frame ``push()``
    latency (median and worst after the first two frames, split into sift,
@@ -53,7 +62,8 @@ phase with its result and seconds:
    port.
 
 In phases 4, 5 and 8-11 every launch count is set to 0 just before the
-path runs and read just after; each path must launch each of its kernels.
+path runs and read just after; each path must launch each of its kernels
+(B7, the one-direction 2-NN, belongs to the matcher API of phase 6 only).
 
 The line before the last is the per-kernel JSON summary (B1-B7), the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -74,7 +84,7 @@ ROOT = Path(__file__).resolve().parent
 
 CSRC = "computervisionimagestich2_tpu_torch/csrc/"
 TPU_OPS = "computervisionimagestich2_tpu/ops/"
-# name -> (id, route, source, replaced Pallas call site)
+# launch counter -> (id, route, source, replaced Pallas call site)
 KERNELS = {
     "detect_compact": (
         "B1", "cuda", CSRC + "detect.cu", TPU_OPS + "pallas_detect.py:168"),
@@ -82,17 +92,42 @@ KERNELS = {
         "B2", "cuda", CSRC + "sift_walks.cu", TPU_OPS + "pallas_sift.py:491"),
     "sift_descriptors": (
         "B3", "cuda", CSRC + "sift_walks.cu", TPU_OPS + "pallas_sift.py:356"),
-    "l1_two_nearest": (
+    "l1_two_nearest_bidir": (
         "B4", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:209"),
     "pair_match_counts": (
         "B5", "cuda", CSRC + "pair_counts.cu",
         TPU_OPS + "pallas_distance.py:431"),
     "warp_image": (
         "B6", "cuda", CSRC + "warp.cu", TPU_OPS + "pallas_warp.py:237"),
-    "l1_two_nearest_one_direction": (
+    "l1_two_nearest": (
         "B7", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:283"),
 }
-CHAIN_OFF_PATH = {"detect_compact", "pair_match_counts"}
+# the device kernels each wrapper launches (substrings of their names)
+DEVICE_KERNELS = {
+    "detect_compact": ("detect_rows_kernel", "detect_flatten_kernel"),
+    "sift_orientation_hist": ("orientation_hist_kernel",),
+    "sift_descriptors": ("descriptors_kernel",),
+    "l1_two_nearest_bidir": ("l1_bidir_tile_kernel", "l1_bidir_merge_kernel"),
+    "pair_match_counts": ("pair_counts_kernel",),
+    "warp_image": ("warp_image_kernel",),
+    "l1_two_nearest": ("l1_two_nearest_kernel",),
+}
+OFF_MAIN_PATH = {"l1_two_nearest"}  # B7: the matcher API (phase 6) only
+CHAIN_OFF_PATH = OFF_MAIN_PATH | {"detect_compact", "pair_match_counts"}
+# Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# device memory 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s,
+# which counts a fused multiply-add as two operations, so 33.5 T of the
+# plain subtractions, adds, multiplies and compares these kernels do.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 33.5e12
+# float operations per contributing window pixel, counted from the walks'
+# arithmetic: B2 offsets, radius, Gaussian weight with its exp, angle bin
+# and two weighted bin adds; B3 offsets, rotation, orientation, Gaussian
+# window with its exp, 8 spatial and 2 orientation hat weights and up to 8
+# weighted bin adds
+B2_OPS_PER_PIXEL = 22
+B3_OPS_PER_PIXEL = 84
+L1_OPS_PER_PAIR = 2 * 128 + 4  # |q - r| + add per feature, 4 top-2 compares
 SCRAMBLE = [2, 0, 3, 1]  # scene position of each image handed over
 
 
@@ -143,7 +178,9 @@ def scrambled(images):
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of one call (CUDA events, after one warm-up)."""
+    """Mean time of one call between CUDA events around ``reps`` calls in
+    a row, after one warm-up: the device time of the call plus whatever
+    the host makes the device wait between launches."""
     import torch
 
     fn()
@@ -158,9 +195,51 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _dev_us(e) -> float:
+    """Device time (us) of one ``torch.profiler`` key_averages entry."""
+    return (getattr(e, "self_device_time_total", 0)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def _device_events(prof) -> list:
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+
+
+def device_ms(fn, name: str, reps: int = 10) -> float | None:
+    """Mean device time per call of ``fn`` spent in the device kernels of
+    wrapper ``name`` (``DEVICE_KERNELS``), from ``torch.profiler`` over
+    ``reps`` calls after one warm-up: the kernels alone, without the host's
+    gaps between launches. None if the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e) for e in _device_events(prof)
+             if any(k in e.key for k in DEVICE_KERNELS[name]))
+    return us / 1e3 / reps if us else None
+
+
+def kernel_ms(fn, name: str) -> dict:
+    """``ms``: the kernels' device time per call (``device_ms``), or the
+    CUDA-event time where the profiler sees no device time; ``ms_events``:
+    the CUDA-event time of calls in a row (``cuda_ms``)."""
+    dev, ev = device_ms(fn, name), cuda_ms(fn)
+    return {"ms": dev if dev is not None else ev, "ms_events": ev,
+            "ms_source": "torch.profiler" if dev is not None
+            else "CUDA events"}
+
+
 class Recorder:
     """Wraps each kernel wrapper at the module attribute the main path
-    calls it through, and keeps the arguments of its first call."""
+    calls it through, and keeps the arguments of every call (``calls``)
+    and of the first (``args``)."""
 
     def __init__(self):
         from computervisionimagestich2_tpu_torch.models import compose
@@ -171,10 +250,11 @@ class Recorder:
             "detect_compact": (detect, "detect_compact"),
             "sift_orientation_hist": (sift_walks, "orientation_hist"),
             "sift_descriptors": (sift_walks, "descriptors"),
-            "l1_two_nearest": (distance, "two_nearest"),
+            "l1_two_nearest_bidir": (distance, "two_nearest_bidir"),
             "pair_match_counts": (distance, "pair_match_counts"),
             "warp_image": (compose, "warp_image")}
         self.args: dict[str, tuple] = {}
+        self.calls: dict[str, list] = {name: [] for name in self.sites}
         self._orig = {}
 
     def __enter__(self):
@@ -184,6 +264,7 @@ class Recorder:
 
             def wrapped(*args, _fn=fn, _name=name):
                 self.args.setdefault(_name, args)
+                self.calls[_name].append(args)
                 return _fn(*args)
             setattr(mod, attr, wrapped)
         return self
@@ -240,28 +321,170 @@ def near_ratio(desc, valid, pairs, ratio: float) -> list:
     return near
 
 
-def check_kernels(args: dict) -> list[dict]:
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``ops``
+    float operations: the larger of the two times at the peak rates."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_us": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(ops)}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def b2_pixels(mod, ang, x, y, sigma, n_valid, radius, *_) -> int:
+    """Window pixels of the live keypoints that kernel B2 adds to a bin:
+    |dx|, |dy| <= wr = max(floor(4.5 sigma), 1), r^2 < wr^2 + 0.6, inside
+    the image (csrc/sift_walks.cu)."""
+    import torch
+
+    h, w = mod.shape
+    n = int(n_valid[0])
+    x, y, sigma = x[:n], y[:n], sigma[:n]
+    xi, yi = torch.floor(x + 0.5), torch.floor(y + 0.5)
+    ok = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+    off = torch.arange(-radius, radius + 1, device=x.device,
+                       dtype=torch.float32)
+    wr = torch.clamp(torch.floor(3.0 * (1.5 * sigma)), min=1.0)[:, None]
+    px, py = xi[:, None] + off, yi[:, None] + off
+    inx = (px >= 0) & (px <= w - 1) & (off.abs() <= wr)
+    iny = (py >= 0) & (py <= h - 1) & (off.abs() <= wr)
+    dx, dy = px - x[:, None], py - y[:, None]
+    r2 = dy[:, :, None] ** 2 + dx[:, None, :] ** 2
+    sel = (iny[:, :, None] & inx[:, None, :]
+           & (r2 < (wr * wr + 0.6)[:, :, None]) & ok[:, None, None])
+    return int(sel.sum())
+
+
+def b3_pixels(mod, ang, x, y, sigma, angle, n_valid, radius, magnif,
+              *_) -> int:
+    """Window pixels of the live keypoints that kernel B3 adds to a bin:
+    inside the loop bounds of vl/sift.c:1352-1357 and inside the +-2.5
+    support of the spatial hats after the rotation."""
+    import torch
+
+    h, w = mod.shape
+    n = int(n_valid[0])
+    x, y, sigma, angle = x[:n], y[:n], sigma[:n], angle[:n]
+    xi, yi = torch.floor(x + 0.5), torch.floor(y + 0.5)
+    ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h - 1)
+    sbp = (magnif * sigma + 2.220446049250313e-16)[:, None]
+    wr = torch.floor(2 ** 0.5 * sbp * 5.0 / 2.0 + 0.5)
+    off = torch.arange(-radius, radius + 1, device=x.device,
+                       dtype=torch.float32)
+    xf, yf = xi[:, None], yi[:, None]
+    inx = (off >= torch.maximum(-wr, 1 - xf)) & (
+        off <= torch.minimum(wr, w - xf - 2))
+    iny = (off >= torch.maximum(-wr, 1 - yf)) & (
+        off <= torch.minimum(wr, h - yf - 2))
+    dx = (xf + off - x[:, None])[:, None, :]
+    dy = (yf + off - y[:, None])[:, :, None]
+    ct, st = torch.cos(angle)[:, None, None], torch.sin(angle)[:, None, None]
+    nx = (ct * dx + st * dy) / sbp[:, :, None]
+    ny = (-st * dx + ct * dy) / sbp[:, :, None]
+    sel = (iny[:, :, None] & inx[:, None, :] & (nx.abs() < 2.5)
+           & (ny.abs() < 2.5) & ok[:, None, None])
+    return int(sel.sum())
+
+
+def kernel_bound(name: str, a: tuple) -> dict:
+    """``bound`` of one call of kernel ``name`` with arguments ``a``,
+    counted from what these inputs need: live rows and contributing
+    window pixels, not capacities."""
+    if name == "detect_compact":  # dog [s_out + 2, h, w], gate, capacity
+        dog, cap = a[0], a[2]
+        s_out, h, w = dog.shape[0] - 2, dog.shape[1], dog.shape[2]
+        # gate + 26 neighbour compares per interior voxel
+        return bound(_nbytes(dog) + cap * (3 * 8 + 1) + 4,
+                     27 * s_out * (h - 2) * (w - 2))
+    if name == "sift_orientation_hist":
+        n = a[2].shape[0]
+        return bound(_nbytes(a[0], a[1]) + 3 * 4 * n + 4 + n * 36 * 4,
+                     B2_OPS_PER_PIXEL * b2_pixels(*a))
+    if name == "sift_descriptors":
+        n = a[2].shape[0]
+        return bound(_nbytes(a[0], a[1]) + 4 * 4 * n + 4 + n * 128 * 4,
+                     B3_OPS_PER_PIXEL * b3_pixels(*a))
+    if name in ("l1_two_nearest_bidir", "l1_two_nearest"):
+        q, r, qv, rv = a
+        nq, nr = int(qv.sum()), int(rv.sum())
+        outs = (q.shape[0] + r.shape[0]) if name == "l1_two_nearest_bidir" \
+            else q.shape[0]
+        return bound((nq + nr) * 128 * 4 + _nbytes(qv, rv) + outs * 12,
+                     L1_OPS_PER_PAIR * nq * nr)
+    if name == "pair_match_counts":  # one distance pass serves both ways
+        desc, valid, pairs = a[:3]
+        live = valid.sum(dim=1).tolist()
+        ops = sum(L1_OPS_PER_PAIR * live[i] * live[j]
+                  for i, j in pairs.tolist())
+        return bound(sum(live) * 128 * 4 + _nbytes(valid, pairs)
+                     + pairs.shape[0] * 8, ops)
+    if name == "warp_image":  # src, coeffs, min_x, min_y, (h_out, w_out)
+        src, (ho, wo) = a[0], a[4]
+        c = src.shape[2] if src.dim() == 3 else 1
+        # bilinear model, truncation and bounds test per output pixel
+        return bound(_nbytes(src) + 40 + ho * wo * c * 4, 20 * ho * wo)
+    raise KeyError(name)
+
+
+def panorama_bound(name: str, calls: list) -> dict:
+    """The bounds of every call of one panorama, summed."""
+    per = [kernel_bound(name, a) for a in calls]
+    by = {"bytes": 0.0, "operations": 0.0}
+    for b in per:
+        by[b["bound_by"]] += b["bound_ms"]
+    return {"bound_ms_per_panorama": sum(b["bound_ms"] for b in per),
+            "bound_by_calls": {k: v for k, v in by.items() if v}}
+
+
+def l1_library(q, r, both: bool):
+    """PyTorch's own calls for the L1 2-NN, as a yardstick (``library_ms``;
+    never called by the port): ``torch.cdist(p=1)`` then ``topk(2,
+    largest=False)`` per direction."""
+    import torch
+
+    d = torch.cdist(q, r, p=1)
+    fwd = torch.topk(d, 2, dim=1, largest=False)
+    return (fwd, torch.topk(d, 2, dim=0, largest=False)) if both else fwd
+
+
+def check_kernels(rec: Recorder) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
-    inputs, both on the card. Tolerances: B1 exact (coords, valid,
-    n_total); B2 raw histograms rtol 1e-5 (atol 1e-5 x max), B3 atol 2e-6,
-    B4 d1/d2 rtol 1e-5 with i1 equal where the 2-NN gap exceeds 1e-4 d1;
-    B5 exact counts, short of the queries within 1e-5 of the ratio; B6
-    exact."""
+    inputs of its first call, both on the card. Tolerances: B1 exact
+    (coords, valid, n_total); B2 raw histograms rtol 1e-5 (atol 1e-5 x
+    max), B3 atol 2e-6, B4 d1/d2 rtol 1e-5 with i1 equal where the 2-NN gap
+    exceeds 1e-4 d1, in both directions; B5 exact counts, short of the
+    queries within 1e-5 of the ratio; B6 exact. B2, B3 and B4 give the same
+    bits twice; B4 the bits of B7 each way; B5 the ratio counts of one B4
+    launch per pair, exactly. Each row carries the bound of the first call
+    and the bounds of the panorama's calls summed."""
     import torch
 
     from computervisionimagestich2_tpu_torch.ops import (detect, distance,
                                                          sift_walks, warp)
 
+    args = rec.args
     rows = []
 
-    def add(name, err, kern, plain, **extra):
+    def add(name, err, kern, plain, library=None, **extra):
         kid, route, source, replaces = KERNELS[name]
         rows.append({"name": name, "id": kid, "route": route,
                      "source": source, "replaces": replaces,
-                     "max_abs_err": float(err), "ms": cuda_ms(kern),
-                     "plain_ms": cuda_ms(plain), **extra})
+                     "max_abs_err": float(err), **kernel_ms(kern, name),
+                     "plain_ms": cuda_ms(plain),
+                     "library_ms": cuda_ms(library) if library else None,
+                     **kernel_bound(name, args[name]),
+                     **panorama_bound(name, rec.calls[name]),
+                     "calls_per_panorama": len(rec.calls[name]), **extra})
+        rows[-1]["share_of_bound"] = rows[-1]["bound_ms"] / rows[-1]["ms"]
         print(json.dumps({"kernel_check": rows[-1]}), flush=True)
 
+    no_library = "no PyTorch call computes it"
     a = args["detect_compact"]
     ck, vk, nk = detect.detect_compact(*a)
     cp, vp, np_ = detect.detect_compact_plain(*a)
@@ -269,48 +492,92 @@ def check_kernels(args: dict) -> list[dict]:
     assert int(nk) == int(np_), (int(nk), int(np_))
     add("detect_compact", (ck - cp).abs().max(),
         lambda: detect.detect_compact(*a),
-        lambda: detect.detect_compact_plain(*a),
+        lambda: detect.detect_compact_plain(*a), library_note=no_library,
         dog=list(a[0].shape), capacity=a[2], candidates=int(vk.sum()),
         n_total=int(nk))
 
     a = args["sift_orientation_hist"]
     hk, okk = sift_walks.orientation_hist(*a)
+    hk2, _ = sift_walks.orientation_hist(*a)
     hp, okp = sift_walks.orientation_hist_plain(*a)
     torch.testing.assert_close(hk, hp, rtol=1e-5,
                                atol=1e-5 * float(hp.abs().max()))
     assert torch.equal(okk, okp)
+    assert torch.equal(hk, hk2), "B2 is not deterministic"
     add("sift_orientation_hist", (hk - hp).abs().max(),
         lambda: sift_walks.orientation_hist(*a),
         lambda: sift_walks.orientation_hist_plain(*a),
-        keypoints=int(a[5][0]), slots=int(a[2].shape[0]), radius=a[6])
+        library_note=no_library, keypoints=int(a[5][0]),
+        slots=int(a[2].shape[0]), radius=a[6],
+        window_pixels=b2_pixels(*a))
 
     a = args["sift_descriptors"]
     dk, okk = sift_walks.descriptors(*a)
+    dk2, _ = sift_walks.descriptors(*a)
     dp, okp = sift_walks.descriptors_plain(*a)
     torch.testing.assert_close(dk, dp, rtol=0, atol=2e-6)
     assert torch.equal(okk, okp)
+    assert torch.equal(dk, dk2), "B3 is not deterministic"
     add("sift_descriptors", (dk - dp).abs().max(),
         lambda: sift_walks.descriptors(*a),
-        lambda: sift_walks.descriptors_plain(*a),
-        keypoints=int(a[6][0]), slots=int(a[2].shape[0]), radius=a[7])
+        lambda: sift_walks.descriptors_plain(*a), library_note=no_library,
+        keypoints=int(a[6][0]), slots=int(a[2].shape[0]), radius=a[7],
+        window_pixels=b3_pixels(*a))
 
-    a = args["l1_two_nearest"]
-    d1k, d2k, i1k = distance.two_nearest(*a)
-    d1p, d2p, i1p = distance.two_nearest_plain(*a)
-    live = a[2]
-    torch.testing.assert_close(d1k[live], d1p[live], rtol=1e-5, atol=0)
-    torch.testing.assert_close(d2k[live], d2p[live], rtol=1e-5, atol=0)
-    clear = live & ((d2p - d1p) > 1e-4 * d1p)
-    assert torch.equal(i1k[clear], i1p[clear])
-    add("l1_two_nearest", (d1k[live] - d1p[live]).abs().max(),
-        lambda: distance.two_nearest(*a),
-        lambda: distance.two_nearest_plain(*a),
-        queries=int(live.sum()), references=int(a[3].sum()),
-        i1_equal_frac=float((i1k[live] == i1p[live]).float().mean()))
+    a = args["l1_two_nearest_bidir"]
+    q, r, qv, rv = a
+    got = distance.two_nearest_bidir(*a)
+    again = distance.two_nearest_bidir(*a)
+    one_way = (distance.two_nearest(q, r, qv, rv),
+               distance.two_nearest(r, q, rv, qv))
+
+    def plain_bidir():
+        return (distance.two_nearest_plain(q, r, qv, rv),
+                distance.two_nearest_plain(r, q, rv, qv))
+
+    plain = plain_bidir()
+    lib_q, lib_r = q[qv].contiguous(), r[rv].contiguous()
+    lib = l1_library(lib_q, lib_r, both=True)
+    err, i1_equal = 0.0, []
+    for side, ok in ((0, qv), (1, rv)):
+        (k1, k2, ki), (p1, p2, pi) = got[side], plain[side]
+        torch.testing.assert_close(k1[ok], p1[ok], rtol=1e-5, atol=0)
+        torch.testing.assert_close(k2[ok], p2[ok], rtol=1e-5, atol=0)
+        clear = ok & ((p2 - p1) > 1e-4 * p1)
+        assert torch.equal(ki[clear], pi[clear])
+        assert all(torch.equal(x, y) for x, y in zip(got[side], again[side])), \
+            "B4 is not deterministic"
+        assert all(torch.equal(x, y)
+                   for x, y in zip(got[side], one_way[side])), \
+            "B4 and B7 disagree on the bits"
+        torch.testing.assert_close(lib[side].values[:, 0] if side == 0
+                                   else lib[side].values[0], k1[ok],
+                                   rtol=1e-4, atol=0)
+        err = max(err, float((k1[ok] - p1[ok]).abs().max()))
+        i1_equal.append(float((ki[ok] == pi[ok]).float().mean()))
+    add("l1_two_nearest_bidir", err, lambda: distance.two_nearest_bidir(*a),
+        plain_bidir, library=lambda: l1_library(lib_q, lib_r, both=True),
+        library_note="three calls: torch.cdist(p=1), then topk(2, "
+                     "largest=False) along each side",
+        one_direction_design_ms=device_ms(
+            lambda: (distance.two_nearest(q, r, qv, rv),
+                     distance.two_nearest(r, q, rv, qv)), "l1_two_nearest"),
+        one_direction_design="the earlier B4: two launches of the "
+                             "one-direction loop (B7), one each way",
+        queries=int(qv.sum()), references=int(rv.sum()),
+        i1_equal_frac=i1_equal)
 
     a = args["pair_match_counts"]
     pk = distance.pair_match_counts(*a)
     pp = distance.pair_match_counts_plain(*a)
+    desc, valid, pairs = a[:3]
+    ratio = a[3] if len(a) > 3 else 0.5
+    for p, (i, j) in enumerate(pairs.tolist()):
+        okq, _, okr, _ = distance.ratio_match_bidir(desc[j], desc[i],
+                                                    valid[j], valid[i], ratio)
+        b4 = [int(okq.sum()), int(okr.sum())]
+        assert b4 == pk[p].tolist(), ("B5 != B4 counts", i, j, b4,
+                                      pk[p].tolist())
     diff = (pk - pp).abs()
     near = None
     if not torch.equal(pk, pp):
@@ -322,9 +589,10 @@ def check_kernels(args: dict) -> list[dict]:
     add("pair_match_counts", diff.max(),
         lambda: distance.pair_match_counts(*a),
         lambda: distance.pair_match_counts_plain(*a),
-        images=int(a[0].shape[0]), slots=int(a[0].shape[1]),
-        live=a[1].sum(dim=1).tolist(), pairs=a[2].tolist(),
-        counts=pk.tolist(), near_ratio=near)
+        library_note=no_library, images=int(a[0].shape[0]),
+        slots=int(a[0].shape[1]), live=a[1].sum(dim=1).tolist(),
+        pairs=a[2].tolist(), counts=pk.tolist(), near_ratio=near,
+        equals_b4_counts=True)
 
     a = args["warp_image"]
     wk = warp.warp_image(*a)
@@ -332,14 +600,43 @@ def check_kernels(args: dict) -> list[dict]:
     assert torch.equal(wk, wp), "B6 must be exact"
     add("warp_image", (wk - wp).abs().max(),
         lambda: warp.warp_image(*a), lambda: warp.warp_image_plain(*a),
-        canvas=list(a[4]))
+        library_note=no_library, canvas=list(a[4]))
     return rows
+
+
+def profile_run(stitcher, images) -> dict:
+    """One warm stitch under ``torch.profiler``: device time and launches
+    per kernel of the port (by ``DEVICE_KERNELS``), all device kernels,
+    the device's busy time (kernels and copies) against the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        stitcher.stitch(images)
+        wall = time.perf_counter() - t
+    dev = _device_events(prof)
+    busy_ms = sum(_dev_us(e) for e in dev) / 1e3
+    per = {}
+    for name, subs in DEVICE_KERNELS.items():
+        hits = [e for e in dev if any(s in e.key for s in subs)]
+        per[name] = {"ms": sum(_dev_us(e) for e in hits) / 1e3,
+                     "device_launches": sum(e.count for e in hits)}
+    out = {"wall_s": wall, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
+           "device_events": sum(e.count for e in dev),
+           "top": sorted(((e.key[:80], _dev_us(e) / 1e3, e.count)
+                          for e in dev), key=lambda x: -x[1])[:12],
+           "kernels": per}
+    assert busy_ms > 0 and all(per[n]["ms"] > 0 for n in per
+                               if n not in OFF_MAIN_PATH), out
+    return out
 
 
 def check_matcher(feats_a, feats_b) -> dict:
     """Phase 6: kernel B7 through the matcher API. Returns its kernels
     row (launches = the l1_two_nearest launches of match_features +
-    match_count)."""
+    match_count; no B4 launch there)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.models import matcher
@@ -349,8 +646,9 @@ def check_matcher(feats_a, feats_b) -> dict:
     pairs = matcher.match_features(feats_a, feats_b)
     n = matcher.match_count(feats_a, feats_b)
     torch.cuda.synchronize()
-    launches = _native.launch_counts()["l1_two_nearest"]
-    assert launches == 2, launches
+    counts = _native.launch_counts()
+    launches = counts["l1_two_nearest"]
+    assert launches == 2 and counts["l1_two_nearest_bidir"] == 0, counts
     ab, _ = matcher.match_features_bidir(feats_a, feats_b)
     assert all(torch.equal(x, y) for x, y in zip(pairs, ab)), \
         "match_features(a, b) != match_features_bidir(a, b)[0]"
@@ -371,19 +669,27 @@ def check_matcher(feats_a, feats_b) -> dict:
     assert torch.equal(i1k[clear], i1p[clear])
     assert not ((i1k >= 10) & (i1k < 30) & qv).any(), "masked row won"
     assert (d1k[~qv] > 1e37).all() and (d2k[~qv] > 1e37).all()
-    kid, route, source, replaces = KERNELS["l1_two_nearest_one_direction"]
+    kid, route, source, replaces = KERNELS["l1_two_nearest"]
     m = (feats_b.desc, feats_a.desc, feats_b.valid, feats_a.valid)
-    row = {"name": "l1_two_nearest_one_direction", "id": kid,
+    lib_q = feats_b.desc[feats_b.valid].contiguous()
+    lib_r = feats_a.desc[feats_a.valid].contiguous()
+    row = {"name": "l1_two_nearest", "id": kid,
            "route": route, "source": source, "replaces": replaces,
            "launches": launches,
            "max_abs_err": float((d1k[qv] - d1p[qv]).abs().max()),
-           "ms": cuda_ms(lambda: distance.two_nearest(*m)),
+           **kernel_ms(lambda: distance.two_nearest(*m), "l1_two_nearest"),
            "plain_ms": cuda_ms(lambda: distance.two_nearest_plain(*m)),
+           "library_ms": cuda_ms(lambda: l1_library(lib_q, lib_r, False)),
+           "library_note": "two calls: torch.cdist(p=1), then topk(2, "
+                           "largest=False)",
+           **kernel_bound("l1_two_nearest", m),
+           "launches_per_panorama": 0, "device_ms_per_panorama": None,
            "queries": int(feats_b.valid.sum()),
            "references": int(feats_a.valid.sum()),
            "masked_references": int((~rv[:int(feats_a.valid.sum())]).sum()),
            "matches": int(pairs.n_raw),
            "i1_equal_frac": float((i1k[qv] == i1p[qv]).float().mean())}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
     print(json.dumps({"kernel_check": row}), flush=True)
     return row
 
@@ -409,11 +715,16 @@ def run(stitcher, images, **kw):
     return out, time.perf_counter() - t
 
 
-def check_launches(launches: dict, off_path=()) -> dict:
-    """Every kernel of the path launched; none off it."""
+def check_launches(launches: dict, off_path=(), b4=None) -> dict:
+    """Every kernel of the path launched; none off it (B7 is off every
+    stitch path); with ``b4``, B4 launched that many times (once per edge,
+    and once per image pair where B4 gives the graph counts)."""
+    off_path = set(off_path) | OFF_MAIN_PATH
     wrong = {n: c for n, c in launches.items()
              if (c == 0) != (n in off_path)}
     assert not wrong, f"launches {launches}, off the path: {sorted(off_path)}"
+    assert b4 is None or launches["l1_two_nearest_bidir"] == b4, (b4,
+                                                                  launches)
     return launches
 
 
@@ -476,6 +787,9 @@ def cli_phase(images, out_exact) -> tuple[dict, np.ndarray]:
     assert len(imported) > 100, proc.stderr[-2000:]
     jax_mods = [m for m in imported if m.split(".")[0] in ("jax", "jaxlib")]
     assert not jax_mods, jax_mods
+    jax_pkg = [m for m in imported if m == "computervisionimagestich2_tpu"
+               or m.startswith("computervisionimagestich2_tpu.")]
+    assert not jax_pkg, jax_pkg
     stages, launches, total = {}, None, None
     for line in proc.stdout.splitlines():
         if line.startswith("kernel launches:"):
@@ -486,14 +800,15 @@ def cli_phase(images, out_exact) -> tuple[dict, np.ndarray]:
             name, secs = line.split(":")
             stages[name] = float(secs.split()[0])
     assert total is not None and launches is not None, proc.stdout
-    check_launches(launches)
+    check_launches(launches, b4=3)
     st = Stitcher(cfg, device="cuda")
     _, cold_s = run(st, images)
     out_b, warm_s, launches_b = counted_run(st, images)
-    check_launches(launches_b)
+    check_launches(launches_b, b4=3)
     return {"canvas": list(out.shape), "total_s": total, "stage_s": stages,
             "subprocess_wall_s": wall, "launches": launches,
             "modules_imported": len(imported), "jax_modules": len(jax_mods),
+            "jax_package_modules": len(jax_pkg),
             "mad_vs_stitcher": canvas_vs_cpu(out, out_b),
             "equals_stitcher": bool(np.array_equal(out, out_b)),
             "stitcher_cold_s": cold_s, "stitcher_warm_s": warm_s,
@@ -521,7 +836,7 @@ def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
     _, rep["incremental_cold_s"] = run(st, images)
     out_i, rep["incremental_warm_s"], rep["incremental_launches"] = \
         counted_run(st, images)
-    check_launches(rep["incremental_launches"])
+    check_launches(rep["incremental_launches"], b4=3)
     rep["incremental_stage_s"] = dict(st.stage_times)
     rep["incremental_vs_planned"] = one_step(out_planned, out_i)
 
@@ -541,7 +856,8 @@ def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
             st, images, resume=True)
         assert np.array_equal(out_d, out_r), "resume is not bit-identical"
         check_launches(rep["resume_launches"], {
-            "detect_compact", "sift_orientation_hist", "sift_descriptors"})
+            "detect_compact", "sift_orientation_hist", "sift_descriptors"},
+            b4=3)
         rep["resume_stage_s"] = dict(st.stage_times)
         shutil.copytree(f"{d}/card", f"{d}/cpu")
         st = Stitcher(both, device="cpu", artifact_dir=f"{d}/cpu")
@@ -569,7 +885,7 @@ def mixed_phase(scene_order, config) -> dict:
     edges = check_chain(seen)
     out, warm_s, launches = counted_run(st, images)
     assert st._feats_stacked is None
-    check_launches(launches, {"pair_match_counts"})
+    check_launches(launches, {"pair_match_counts"}, b4=6 + len(edges))
     t = time.perf_counter()
     out_cpu = Stitcher(config, device="cpu").stitch(images)
     cpu_s = time.perf_counter() - t
@@ -696,7 +1012,8 @@ def main() -> int:
     emit("default_512x384_cold", t, cold_s=cold_s, scramble=SCRAMBLE,
          edges=edges, start=seen["start"], canvas=list(out_cold.shape))
     t = time.perf_counter()
-    kernels = check_kernels(rec.args)
+    kernels = check_kernels(rec)
+    del rec
     emit("kernels_vs_plain", t, checked=[k["name"] for k in kernels])
 
     # -- 4. warm default path: launch counts of one run, median of three
@@ -704,10 +1021,7 @@ def main() -> int:
     out, t1, launches = counted_run(st, images)
     stages = dict(st.stage_times)
     warm = [t1] + [run(st, images)[1] for _ in range(2)]
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    missing = [n for n, c in launches.items() if c == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
+    check_launches(launches, b4=len(edges))
     assert stages["ordering"] > 0, stages
     t_cpu = time.perf_counter()
     out_cpu = stm.Stitcher(DEFAULT_CONFIG, device="cpu").stitch(images)
@@ -719,6 +1033,15 @@ def main() -> int:
          warm_s=warm, stage_s=stages, launches=launches,
          warm_equals_cold=bool(np.array_equal(out, out_cold)),
          cpu_canvas=list(out_cpu.shape), cpu_s=cpu_s, mad_vs_cpu=mad)
+    t = time.perf_counter()
+    prof = profile_run(st, images)
+    for k in kernels:
+        k["launches"] = k["launches_per_panorama"] = launches[k["name"]]
+        k["device_ms_per_panorama"] = prof["kernels"][k["name"]]["ms"]
+        k["share_of_bound_per_panorama"] = (
+            k["bound_ms_per_panorama"] / k["device_ms_per_panorama"]
+            if k["device_ms_per_panorama"] else None)
+    emit("default_512x384_profile", t, **prof)
     feats = st._matching_feats()
 
     # -- 5. the chain slice (SLICE_CONFIG), scene order
@@ -728,9 +1051,7 @@ def main() -> int:
     _native.reset_launch_counts()
     out_chain, chain_warm_s = run(st_chain, scene_order)
     chain_launches = _native.launch_counts()
-    wrong = [n for n, c in chain_launches.items()
-             if (c == 0) != (n in CHAIN_OFF_PATH)]
-    assert not wrong, f"chain slice launches: {chain_launches}"
+    check_launches(chain_launches, CHAIN_OFF_PATH, b4=3)
     out_chain_cpu = stm.Stitcher(SLICE_CONFIG, device="cpu").stitch(
         scene_order)
     chain_mad = canvas_vs_cpu(out_chain, out_chain_cpu)

@@ -37,7 +37,7 @@ cudaError_t cvs_descriptors(const float* mod, const float* ang, int h, int w,
                             float magnif, float window_size, float* desc,
                             cudaStream_t stream);
 
-// B4 / B7 (one direction): for each of the nb query rows of qry [nb, 128]
+// B7 (one direction): for each of the nb query rows of qry [nb, 128]
 // with qry_valid set, the two smallest L1 distances to the rows of ref
 // [na, 128] with ref_valid set and the index of the nearest; d1 = d2 = BIG
 // and i1 = 0 for the other queries.
@@ -46,6 +46,20 @@ cudaError_t cvs_l1_two_nearest(const float* qry, const float* ref,
                                const unsigned char* ref_valid, int nb, int na,
                                float* d1, float* d2, int* i1,
                                cudaStream_t stream);
+
+// B4: both 2-NN directions from one distance pass. For each query row
+// with qry_valid set, (d1q, d2q, i1q) over the references with ref_valid
+// set, and for each such reference row (d1r, d2r, i1r) over those queries;
+// BIG, BIG, 0 for the other rows. Scratch: part_d [2 * (ceil(na / 64) * nb
+// + ceil(nb / 64) * na)] floats, part_i [ceil(na / 64) * nb + ceil(nb / 64)
+// * na] ints. Two launches (the tile pass and its merge).
+cudaError_t cvs_l1_two_nearest_bidir(const float* qry, const float* ref,
+                                     const unsigned char* qry_valid,
+                                     const unsigned char* ref_valid, int nb,
+                                     int na, float* part_d, int* part_i,
+                                     float* d1q, float* d2q, int* i1q,
+                                     float* d1r, float* d2r, int* i1r,
+                                     cudaStream_t stream);
 
 // B5: Lowe-ratio match counts out [n_pairs, 2] (zeroed by the caller) over
 // desc [n, cap, 128] with valid [n, cap]; pairs [n_pairs, 2] = (i, j).

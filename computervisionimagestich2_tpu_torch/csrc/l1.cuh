@@ -1,7 +1,8 @@
-// The exact L1 2-NN inner loop shared by kernels B4/B7 (l1_2nn.cu) and B5
-// (pair_counts.cu). Both kernels call l1_top2, so they sum |q - r| over the
-// 128 features in the same order and an image pair's match-graph count
-// equals the count that two B4 launches give on it, bit for bit.
+// The exact L1 2-NN inner loop shared by kernels B7 (l1_2nn.cu) and B5
+// (pair_counts.cu). Every L1 kernel of the port (B4's tile loop in
+// l1_2nn.cu too) sums |q - r| over the 128 features in ascending order into
+// one float from 0, so they all give the same distance bits, and an image
+// pair's match-graph count (B5) equals the count of one B4 launch on it.
 //
 // Layout: a block of kQueries threads, one query per thread, its 128 floats
 // in registers; reference rows staged kRefTile at a time in shared memory,
@@ -23,20 +24,21 @@ struct Top2 {
   int i1;
 };
 
-// One past the last true entry of mask[0, n). Every thread of the block
-// calls it; the result is the same in all of them.
+// One past the last true entry of mask[0, n). Every thread of a block of
+// kThreads threads calls it; the result is the same in all of them.
+template <int kThreads>
 __device__ __forceinline__ int live_bound(const unsigned char* __restrict__ mask,
                                           int n) {
-  __shared__ int warp_max[kQueries / 32];
+  __shared__ int warp_max[kThreads / 32];
   int b = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
+  for (int i = threadIdx.x; i < n; i += kThreads)
     if (mask[i]) b = i + 1;  // i ascends per thread: the last hit wins
   b = __reduce_max_sync(0xffffffffu, b);
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = b;
   __syncthreads();
   int r = 0;
 #pragma unroll
-  for (int k = 0; k < kQueries / 32; ++k) r = max(r, warp_max[k]);
+  for (int k = 0; k < kThreads / 32; ++k) r = max(r, warp_max[k]);
   __syncthreads();  // warp_max may be written again by a later call
   return r;
 }

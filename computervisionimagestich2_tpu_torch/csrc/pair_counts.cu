@@ -46,7 +46,7 @@ pair_counts_kernel(const float* __restrict__ desc,
   const int q = blockIdx.x * kQueries + threadIdx.x;
   const bool live = q < cap && qmask[q];
   if (!__syncthreads_or(live)) return;  // no valid query: uniform exit
-  const int nr = live_bound(rmask, cap);
+  const int nr = live_bound<kQueries>(rmask, cap);
   float qv[kFeat];
   load_query(desc + (long long)qi * cap * kFeat, q, live, qv);
   const Top2 t = l1_top2(qv, desc + (long long)ri * cap * kFeat, rmask, nr);

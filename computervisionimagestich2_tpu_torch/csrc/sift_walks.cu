@@ -15,19 +15,35 @@
 // (x, y, orientation) bins, then L2-normalise, clamp at 0.2, renormalise
 // (pallas_sift.py:378-385). Contract: ops/sift_kernels.py::descriptors.
 //
-// What bounds them on the H100: arithmetic and latency per window pixel
-// (an expf, for B3 also fmodf and 16 hat weights, then 2 or 8 scattered
-// bin updates), not memory: a window of up to ~115x115 pixels of two
-// float planes is read once and hits L1/L2. The TPU kernels lane-packed
-// several keypoints per grid step and reduced bins with one-hot matmuls;
-// here one thread block walks one keypoint slot, its threads striding over
-// the window. Blocks at or past the live count (read from device memory,
-// so the host never synchronises) write zeros and exit.
+// What bounds them on the H100: arithmetic per contributing window pixel
+// (an expf, for B3 also fmodf, a rotation and 10 hat weights, then 2 (B2)
+// or up to 8 (B3) weighted bin adds), not memory: a window of up to
+// ~115x115 pixels of two float planes is read once and hits L1/L2. The
+// TPU kernels lane-packed several keypoints per grid step and reduced bins
+// with one-hot matmuls; here one thread block walks one keypoint slot, its
+// threads striding over the window. Blocks at or past the live count (read
+// from device memory, so the host never synchronises) write zeros and
+// exit.
 //
-// Determinism: each thread accumulates its own bins in a private array;
-// the block then sums the per-thread (B2) or per-warp (B3) partials in a
-// fixed order, so two runs give the same bits. The summation order differs
-// from the reference's reductions, so results agree to f32 rounding.
+// B3's design against that bound: each thread keeps its 128 bins in a
+// column of a [bin][thread] array in dynamic shared memory (64 KB), not in
+// a runtime-indexed private array, which the compiler puts in local memory
+// (a 544-byte stack frame, every bin add a round trip through L1); a
+// thread touches only its own column, so there are no bank conflicts and
+// no atomics. Threads stride over the box of the window that
+// vl/sift.c:1352-1357 bounds, not over the level's whole static square,
+// and skip a pixel before its expf once the rotated offset lies outside
+// the +-2.5 support of the spatial hats (it would add nothing). The tail
+// is parallel and in a fixed order: each warp sums 32 bins across the 128
+// columns (4 column reads per lane, then a shuffle-down tree), and both
+// norms are block shuffle reductions. B2 still keeps its 36 bins in a
+// private array (a 144-byte stack frame) and sums them serially per bin;
+// it is the next walk to redesign.
+//
+// Determinism: every sum runs in a fixed order, so two runs give the same
+// bits, and with no float atomics. The summation orders differ from the
+// plain version's (and B3's from the earlier per-warp design's), so the
+// results agree to f32 rounding: B3 atol 2e-6, B2 rtol 1e-5.
 //
 // Exactness of window membership: compiled with --fmad=false and written
 // in the JAX operation order, so every floor and `<` that decides which
@@ -117,17 +133,36 @@ orientation_hist_kernel(const float* __restrict__ mod,
   }
 }
 
+// Dynamic shared memory of B3: per-thread bins, [bin][thread], 64 KB.
+constexpr int kDescSmem = kDescBins * kDescThreads * (int)sizeof(float);
+
+// Sum of v over the block's 4 warps, in a fixed order: a shuffle-down tree
+// in each warp, then the warps' sums in ascending order (every thread gets
+// the same bits). `wsum` holds kDescThreads / 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* wsum) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kDescThreads / 32; ++k) s += wsum[k];
+  __syncthreads();  // wsum may be written again by a later call
+  return s;
+}
+
 __global__ void __launch_bounds__(kDescThreads)
 descriptors_kernel(const float* __restrict__ mod,
                    const float* __restrict__ ang, int h, int w,
                    const float* __restrict__ xs, const float* __restrict__ ys,
                    const float* __restrict__ sigmas,
                    const float* __restrict__ angles,
-                   const int* __restrict__ n_valid, int radius, float magnif,
-                   float window_size, float* __restrict__ desc) {
-  __shared__ float warp_part[kDescThreads / 32][kDescBins];
+                   const int* __restrict__ n_valid, int radius,
+                   float magnif, float window_size, float* __restrict__ desc) {
+  extern __shared__ float bins[];  // [kDescBins][kDescThreads]
   __shared__ float vals[kDescBins];
-  __shared__ float norm;
+  __shared__ float wsum[kDescThreads / 32];
   const int k = blockIdx.x;
   const int tid = threadIdx.x;
   float* out = desc + (long long)k * kDescBins;
@@ -154,28 +189,33 @@ descriptors_kernel(const float* __restrict__ mod,
   const float wr = floorf(1.4142135623730951f * sbp * 5.0f / 2.0f + 0.5f);
   const float fxi = (float)xi;
   const float fyi = (float)yi;
-  // pixel loop bounds (vl/sift.c:1352-1357)
-  const float x_lo = fmaxf(-wr, 1.0f - fxi);
-  const float x_hi = fminf(wr, (float)w - fxi - 2.0f);
-  const float y_lo = fmaxf(-wr, 1.0f - fyi);
-  const float y_hi = fminf(wr, (float)h - fyi - 2.0f);
+  // pixel loop bounds (vl/sift.c:1352-1357), whole numbers, inside the
+  // level's static window radius as in the plain version
+  const float r = (float)radius;
+  const float x_lo = fmaxf(fmaxf(-wr, 1.0f - fxi), -r);
+  const float x_hi = fminf(fminf(wr, (float)w - fxi - 2.0f), r);
+  const float y_lo = fmaxf(fmaxf(-wr, 1.0f - fyi), -r);
+  const float y_hi = fminf(fminf(wr, (float)h - fyi - 2.0f), r);
   const float win_den = 2.0f * window_size * window_size;
+  float* my = bins + tid;  // this thread's column: bin b at my[b * threads]
+#pragma unroll 8
+  for (int b = 0; b < kDescBins; ++b) my[b * kDescThreads] = 0.f;
 
-  float acc[kDescBins];
-#pragma unroll
-  for (int b = 0; b < kDescBins; ++b) acc[b] = 0.f;
-
-  const int p = 2 * radius + 1;
-  for (int idx = tid; idx < p * p; idx += kDescThreads) {
-    const float dyi = (float)(idx / p - radius);
-    const float dxi = (float)(idx - (idx / p) * p - radius);
-    if (dxi < x_lo || dxi > x_hi || dyi < y_lo || dyi > y_hi) continue;
-    const int pix = (yi + (int)dyi) * w + (xi + (int)dxi);
-    const float theta = mod_pos(ang[pix] - angle0, kTwoPi);
+  const int bw = (int)(x_hi - x_lo) + 1;
+  const int n_pix = x_hi < x_lo || y_hi < y_lo
+                        ? 0 : bw * ((int)(y_hi - y_lo) + 1);
+  for (int idx = tid; idx < n_pix; idx += kDescThreads) {
+    const int row = idx / bw;
+    const float dyi = y_lo + (float)row;
+    const float dxi = x_lo + (float)(idx - row * bw);
     const float dx = fxi + dxi - x;
     const float dy = fyi + dyi - y;
     const float nx = (ct0 * dx + st0 * dy) / sbp;
     const float ny = (-st0 * dx + ct0 * dy) / sbp;
+    // every spatial hat is 0 outside (-2.5, 2.5): nothing to add
+    if (fabsf(nx) >= 2.5f || fabsf(ny) >= 2.5f) continue;
+    const int pix = (yi + (int)dyi) * w + (xi + (int)dxi);
+    const float theta = mod_pos(ang[pix] - angle0, kTwoPi);
     const float nt = 8.0f * theta / kTwoPi;
     const float win = expf(-(nx * nx + ny * ny) / win_den);
     const float base = win * mod[pix];
@@ -207,45 +247,31 @@ descriptors_kernel(const float* __restrict__ mod,
         if (wx[bx] == 0.f) continue;
         const float z = zy * wx[bx];
         const int cell = (by * 4 + bx) * 8;
-        acc[cell + tb[0]] += z * wt[0];
-        acc[cell + tb[1]] += z * wt[1];
+        my[(cell + tb[0]) * kDescThreads] += z * wt[0];
+        my[(cell + tb[1]) * kDescThreads] += z * wt[1];
       }
     }
   }
-  // fixed-order reduction: a butterfly within each warp, then the warps
-  // in order
+  __syncthreads();
+  // fixed-order reduction, warp w taking bins 32w .. 32w + 31: lane l adds
+  // the columns l, l + 32, l + 64, l + 96 of a bin (one conflict-free row
+  // read per step), then a shuffle-down tree puts the bin's sum in lane 0
   const int lane = tid & 31;
   const int warp = tid >> 5;
-#pragma unroll 4
-  for (int b = 0; b < kDescBins; ++b) {
-    float v = acc[b];
+  for (int b = warp * 32; b < warp * 32 + 32; ++b) {
+    const float* row = bins + b * kDescThreads + lane;
+    float v = ((row[0] + row[32]) + row[64]) + row[96];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_part[warp][b] = v;
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) vals[b] = v;
   }
   __syncthreads();
-  float d = 0.f;
-#pragma unroll
-  for (int wi = 0; wi < kDescThreads / 32; ++wi) d += warp_part[wi][tid];
   // normalise -> clamp 0.2 -> renormalise (vl/sift.c:1415-1436)
-  vals[tid] = d * d;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int b = 0; b < kDescBins; ++b) s += vals[b];
-    norm = sqrtf(s) + kEpsF;
-  }
-  __syncthreads();
+  float d = vals[tid];
+  float norm = sqrtf(block_sum(d * d, wsum)) + kEpsF;
   d = fminf(d / norm, 0.2f);
-  vals[tid] = d * d;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int b = 0; b < kDescBins; ++b) s += vals[b];
-    norm = sqrtf(s) + kEpsF;
-  }
-  __syncthreads();
+  norm = sqrtf(block_sum(d * d, wsum)) + kEpsF;
   out[tid] = d / norm;
 }
 
@@ -272,7 +298,19 @@ extern "C" cudaError_t cvs_descriptors(const float* mod, const float* ang,
                                        float magnif, float window_size,
                                        float* desc, cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
-  descriptors_kernel<<<n, kDescThreads, 0, stream>>>(
+  // the 64 KB of dynamic shared memory need an opt-in, once per device
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(descriptors_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDescSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) smem_set[dev] = true;
+  }
+  descriptors_kernel<<<n, kDescThreads, kDescSmem, stream>>>(
       mod, ang, h, w, x, y, sigma, angle, n_valid, radius, magnif,
       window_size, desc);
   return cudaGetLastError();

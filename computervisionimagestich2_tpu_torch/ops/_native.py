@@ -38,8 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"detect_compact": 0, "sift_orientation_hist": 0,
-            "sift_descriptors": 0, "l1_two_nearest": 0,
-            "pair_match_counts": 0, "warp_image": 0}
+            "sift_descriptors": 0, "l1_two_nearest_bidir": 0,
+            "pair_match_counts": 0, "warp_image": 0, "l1_two_nearest": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +56,10 @@ _SIGNATURES = {
                         _P, _P),
     # (qry, ref, qry_valid, ref_valid, nb, na, d1, d2, i1, stream)
     "cvs_l1_two_nearest": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # (qry, ref, qry_valid, ref_valid, nb, na, part_d, part_i, d1q, d2q,
+    #  i1q, d1r, d2r, i1r, stream)
+    "cvs_l1_two_nearest_bidir": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P),
     # (desc, valid, cap, pairs, n_pairs, ratio, out, stream)
     "cvs_pair_match_counts": (_P, _P, _I, _P, _I, _F, _P, _P),
     # (src, src_h, src_w, channels, params, h_out, w_out, out, stream)

@@ -5,14 +5,17 @@ Replaces the reference's kd-forest ANN matcher (vl/kdtree.c) and the 2-NN
 + ratio wrapper (ImageProcess.cpp:273-351) with an exact search: every live
 query x reference L1 distance, top-2 per row, lowest index on ties.
 
-``two_nearest`` is one direction: the kernel of ``csrc/l1_2nn.cu`` on a
-CUDA tensor, ``two_nearest_plain`` on a CPU tensor. Alone it is kernel B7
-(the port of ``two_nearest_l1_pallas``, behind ``ratio_match`` and
-``models.matcher.match_features``); ``two_nearest_bidir`` runs it in both
-directions as kernel B4 (the port of ``two_nearest_l1_bidir_pallas``).
-``pair_match_counts`` is kernel B5 (``csrc/pair_counts.cu``, the port of
-``pair_match_counts_pallas``): the ratio-test counts of many image pairs in
-one launch, with ``pair_match_counts_plain`` beside it.
+``two_nearest`` is one direction: kernel B7 of ``csrc/l1_2nn.cu`` on a
+CUDA tensor (the port of ``two_nearest_l1_pallas``, behind ``ratio_match``
+and ``models.matcher.match_features``), ``two_nearest_plain`` on a CPU
+tensor. ``two_nearest_bidir`` is kernel B4 (the port of
+``two_nearest_l1_bidir_pallas``): both directions from one distance pass
+over 64 x 64 tiles, whose per-tile top-2s a second kernel merges
+(``merge_top2_plain`` is that merge in plain PyTorch); on a CPU tensor it
+is ``two_nearest_plain`` run both ways. ``pair_match_counts`` is kernel B5
+(``csrc/pair_counts.cu``, the port of ``pair_match_counts_pallas``): the
+ratio-test counts of many image pairs in one launch, with
+``pair_match_counts_plain`` beside it.
 """
 from __future__ import annotations
 
@@ -26,9 +29,8 @@ BIG = 3.0e38
 def two_nearest_plain(qry: torch.Tensor, ref: torch.Tensor,
                       qry_valid: torch.Tensor, ref_valid: torch.Tensor,
                       chunk: int = 128):
-    """Plain PyTorch version of kernels B4 and B7: for each query row,
-    (d1, d2, i1)
-    over the valid reference rows. Invalid references never win; invalid
+    """Plain PyTorch version of kernel B7 (and of B4, run both ways): for
+    each query row, (d1, d2, i1) over the valid reference rows. Invalid references never win; invalid
     queries get d1 = d2 = BIG. A tie at d1 gives d2 = d1."""
     nb = qry.shape[0]
     d1 = torch.full((nb,), BIG, dtype=torch.float32, device=qry.device)
@@ -56,7 +58,7 @@ def two_nearest(qry: torch.Tensor, ref: torch.Tensor,
     """For every query descriptor, its 2 nearest reference descriptors by
     L1: (d1, d2, i1), as ``two_nearest_plain`` returns them. Any masks are
     honoured; the kernel reads them on the device, so nothing waits for the
-    host. Kernel B4/B7 on CUDA tensors."""
+    host. Kernel B7 on CUDA tensors."""
     if qry.device.type == "cpu":
         return two_nearest_plain(qry, ref, qry_valid, ref_valid)
     _native.check_cuda("two_nearest.qry", qry, torch.float32, (None, 128), 16)
@@ -78,12 +80,59 @@ def two_nearest(qry: torch.Tensor, ref: torch.Tensor,
     return d1, d2, i1.long()
 
 
+TILE = 64  # queries and references per tile of kernel B4
+
+
+def merge_top2_plain(d1: torch.Tensor, d2: torch.Tensor, i1: torch.Tensor,
+                     valid: torch.Tensor):
+    """Plain PyTorch version of B4's merge: per-tile partial top-2s
+    d1, d2, i1 [T, N] (tile t's rows hold the 2-NN of each row over the
+    t-th tile of the other side, i1 as global indices) merged in ascending
+    tile order with a strict ``<``, so the lowest index wins and a tie at
+    d1 gives d2 = d1. Rows where ``valid`` is false get BIG, BIG, 0."""
+    n = d1.shape[1]
+    a1 = torch.full((n,), BIG, dtype=torch.float32, device=d1.device)
+    a2 = torch.full((n,), BIG, dtype=torch.float32, device=d1.device)
+    ai = torch.zeros((n,), dtype=torch.int64, device=d1.device)
+    for t in range(d1.shape[0]):
+        b1, b2, bi = d1[t], d2[t], i1[t].long()
+        win = b1 < a1
+        a2 = torch.where(win, torch.minimum(a1, b2), torch.minimum(a2, b1))
+        a1 = torch.where(win, b1, a1)
+        ai = torch.where(win, bi, ai)
+    return (torch.where(valid, a1, BIG), torch.where(valid, a2, BIG),
+            torch.where(valid, ai, 0))
+
+
 def two_nearest_bidir(qry: torch.Tensor, ref: torch.Tensor,
                       qry_valid: torch.Tensor, ref_valid: torch.Tensor):
     """Both 2-NN directions: ((d1q, d2q, i1q), (d1r, d2r, i1r)), the second
-    tuple with the roles of qry and ref swapped."""
-    return (two_nearest(qry, ref, qry_valid, ref_valid),
-            two_nearest(ref, qry, ref_valid, qry_valid))
+    tuple with the roles of qry and ref swapped, as ``two_nearest`` returns
+    each. Kernel B4 on CUDA tensors: one distance pass serves both
+    directions; any masks are honoured and read on the device."""
+    if qry.device.type == "cpu":
+        return (two_nearest_plain(qry, ref, qry_valid, ref_valid),
+                two_nearest_plain(ref, qry, ref_valid, qry_valid))
+    name = "two_nearest_bidir"
+    _native.check_cuda(f"{name}.qry", qry, torch.float32, (None, 128), 16)
+    _native.check_cuda(f"{name}.ref", ref, torch.float32, (None, 128), 16)
+    nb, na = qry.shape[0], ref.shape[0]
+    _native.check_cuda(f"{name}.qry_valid", qry_valid, torch.bool, (nb,), 1)
+    _native.check_cuda(f"{name}.ref_valid", ref_valid, torch.bool, (na,), 1)
+    dev = qry.device
+    n_part = -(-na // TILE) * nb + -(-nb // TILE) * na
+    part_d = torch.empty((2 * n_part,), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_part,), dtype=torch.int32, device=dev)
+    out = [torch.empty((n,), dtype=dt, device=dev) for n in (nb, na)
+           for dt in (torch.float32, torch.float32, torch.int32)]
+    if nb or na:
+        _native.LAUNCHES["l1_two_nearest_bidir"] += 1
+        _native.launch("cvs_l1_two_nearest_bidir", qry.data_ptr(),
+                       ref.data_ptr(), qry_valid.data_ptr(),
+                       ref_valid.data_ptr(), nb, na, part_d.data_ptr(),
+                       part_i.data_ptr(), *(t.data_ptr() for t in out))
+    d1q, d2q, i1q, d1r, d2r, i1r = out
+    return (d1q, d2q, i1q.long()), (d1r, d2r, i1r.long())
 
 
 def _ratio_ok(d1: torch.Tensor, d2: torch.Tensor, valid: torch.Tensor,

@@ -1,0 +1,289 @@
+"""Old against new: the port's kernels beside an earlier commit's, on one
+card, in one run.
+
+    python -m computervisionimagestich2_tpu_torch.tools.kernel_ab \\
+        --parent DIR [--check] [--out FILE]
+
+DIR holds a checkout of the earlier commit (``git archive <commit>``
+unpacked into a directory that ``.gitignore`` lists, such as
+``build/parent``). Run from the root of this checkout, on a machine with
+one NVIDIA GPU and ``nvcc``. Steps:
+
+1. ``nvcc -Xptxas -v`` on every CUDA source of both trees, with this
+   tree's flags (``ops/_native.py``): registers, stack frame, spill stores and loads and
+   static shared memory of each kernel;
+2. one default-path stitch of this tree on the four scrambled 512x384
+   crops of ``chip_smoke.py`` (phase 3), recording the arguments of every
+   call of B2 (``sift_walks.orientation_hist``), B3
+   (``sift_walks.descriptors``) and B4 (``distance.two_nearest_bidir``);
+3. in turns parent, this tree, this tree, parent (a subprocess each, with
+   that tree first on ``sys.path``): each tree's wrappers on the recorded
+   calls, held against the plain versions on the card (B2 rtol 1e-5 with
+   atol 1e-5 x max, B3 atol 2e-6, B4 d1 / d2 rtol 1e-5 and i1 where the
+   2-NN gap exceeds 1e-4 d1) and against a second run (equal bits); then,
+   without ``--check``, the time of all recorded calls of a kernel in a
+   row, mean of 10 passes after one warm-up: the device time of the
+   kernels alone from ``torch.profiler`` (``device_ms_*``: per panorama
+   for the walks, per edge for B4) and the time between CUDA events around
+   the calls, which adds the host's gaps between launches
+   (``ms_all_calls_events``); and five warm default-path stitches of the
+   recorded images after one cold one (``stitch_warm_*``, host clock).
+
+Prints one JSON object per step and writes them all to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+SITES = {"sift_orientation_hist": ("sift_walks", "orientation_hist"),
+         "sift_descriptors": ("sift_walks", "descriptors"),
+         "l1_two_nearest_bidir": ("distance", "two_nearest_bidir")}
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier inside a mangled name: the one that its
+    decimal length prefix delimits exactly."""
+    for m in re.finditer(r"\d+", mangled):
+        for cut in range(len(m.group())):  # "cf21detect...": try 21 and 1
+            n = int(m.group()[cut:])
+            ident = mangled[m.end():m.end() + n]
+            if ident.endswith("_kernel") and len(ident) == n:
+                return ident
+    return mangled
+
+
+def ptxas_report(tree: Path) -> dict:
+    """Per kernel of ``tree``'s csrc/: registers, stack, spills, smem."""
+    from computervisionimagestich2_tpu_torch.ops import _native
+
+    csrc = tree / "computervisionimagestich2_tpu_torch" / "csrc"
+    sources = sorted(p.name for p in csrc.glob("*.cu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {src: subprocess.Popen(
+            [_native._nvcc(), *_native.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(csrc), "-c", "-o", f"{tmp}/{src}.o", str(csrc / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in sources}
+        outs = {src: p.communicate()[0] for src, p in procs.items()}
+    report = {}
+    for src, text in outs.items():
+        if procs[src].returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{text[-4000:]}")
+        name = None
+        for line in text.splitlines():
+            if m := _PTXAS_ENTRY.search(line):
+                name = kernel_name(m.group(1))
+                report[name] = {"source": src}
+            elif name and (m := _PTXAS_FRAME.search(line)):
+                report[name].update(stack=int(m.group(1)),
+                                    spill_stores=int(m.group(2)),
+                                    spill_loads=int(m.group(3)))
+            elif name and (m := _PTXAS_USED.search(line)):
+                report[name]["registers"] = int(m.group(1))
+                if s := _PTXAS_SMEM.search(line):
+                    report[name]["smem"] = int(s.group(1))
+    return report
+
+
+def record_inputs(path: Path) -> dict:
+    """One cold default-path stitch of this tree on chip_smoke's crops,
+    keeping the arguments of every B2, B3 and B4 call (as CPU tensors)."""
+    import torch
+
+    import chip_smoke
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+    from computervisionimagestich2_tpu_torch.ops import distance, sift_walks
+
+    mods = {"sift_walks": sift_walks, "distance": distance}
+    calls = {name: [] for name in SITES}
+    orig = {}
+    for name, (mod, attr) in SITES.items():
+        fn = orig[name] = getattr(mods[mod], attr)
+
+        def wrapped(*args, _fn=fn, _name=name):
+            calls[_name].append(tuple(
+                a.detach().cpu() if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return _fn(*args)
+        setattr(mods[mod], attr, wrapped)
+    images = chip_smoke.scrambled(chip_smoke.crops(512, 384, 224, 2, 0))
+    try:
+        Stitcher(DEFAULT_CONFIG, device="cuda").stitch(images)
+    finally:
+        for name, (mod, attr) in SITES.items():
+            setattr(mods[mod], attr, orig[name])
+    counts = {name: len(c) for name, c in calls.items()}
+    calls["images"] = [torch.from_numpy(im) for im in images]
+    torch.save(calls, path)
+    return counts
+
+
+_CHILD = r"""
+import json, sys
+tree, inputs, check = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+sys.path.insert(0, tree)
+import torch
+from computervisionimagestich2_tpu_torch.ops import distance, sift_walks, _native
+assert _native.__file__.startswith(tree), _native.__file__
+calls = torch.load(inputs)
+images = [im.numpy() for im in calls.pop("images")]
+dev = torch.device("cuda")
+calls = {k: [tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                   for a in c) for c in v] for k, v in calls.items()}
+_native.build()
+# device kernels of each wrapper, old and new designs (name substrings)
+kernels = {"sift_orientation_hist": ("orientation_hist_kernel",),
+           "sift_descriptors": ("descriptors_kernel",),
+           "l1_two_nearest_bidir": ("l1_two_nearest_kernel",
+                                    "l1_bidir_tile_kernel",
+                                    "l1_bidir_merge_kernel")}
+fns = {"sift_orientation_hist": (sift_walks.orientation_hist,
+                                 sift_walks.orientation_hist_plain),
+       "sift_descriptors": (sift_walks.descriptors,
+                            sift_walks.descriptors_plain),
+       "l1_two_nearest_bidir": (
+           distance.two_nearest_bidir,
+           lambda q, r, qv, rv: (distance.two_nearest_plain(q, r, qv, rv),
+                                 distance.two_nearest_plain(r, q, rv, qv)))}
+out = {"tree": tree, "gpu": torch.cuda.get_device_name(0)}
+for name, (kern, plain) in fns.items():
+    err = 0.0
+    for c in calls[name]:
+        a, b = kern(*c), kern(*c)
+        p = plain(*c)
+        if name == "l1_two_nearest_bidir":
+            for (k1, k2, ki), (b1, b2, bi), (p1, p2, pi), ok in zip(
+                    a, b, p, (c[2], c[3])):
+                assert all(torch.equal(x, y) for x, y in
+                           ((k1, b1), (k2, b2), (ki, bi))), "not deterministic"
+                torch.testing.assert_close(k1[ok], p1[ok], rtol=1e-5, atol=0)
+                torch.testing.assert_close(k2[ok], p2[ok], rtol=1e-5, atol=0)
+                clear = ok & ((p2 - p1) > 1e-4 * p1)
+                assert torch.equal(ki[clear], pi[clear])
+                err = max(err, float((k1[ok] - p1[ok]).abs().max()))
+        else:
+            assert torch.equal(a[0], b[0]), "not deterministic"
+            assert torch.equal(a[1], p[1])
+            if name == "sift_descriptors":
+                torch.testing.assert_close(a[0], p[0], rtol=0, atol=2e-6)
+            else:
+                torch.testing.assert_close(
+                    a[0], p[0], rtol=1e-5,
+                    atol=1e-5 * float(p[0].abs().max()))
+            err = max(err, float((a[0] - p[0]).abs().max()))
+    rec = {"calls": len(calls[name]), "max_abs_err": err}
+    if not check:
+        def all_calls():
+            for c in calls[name]:
+                kern(*c)
+        all_calls()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            all_calls()
+        end.record()
+        end.synchronize()
+        rec["ms_all_calls_events"] = start.elapsed_time(end) / 10
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                all_calls()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            t = (getattr(e, "self_device_time_total", 0)
+                 or getattr(e, "self_cuda_time_total", 0))
+            if str(e.device_type).endswith("CUDA") and any(
+                    k in e.key for k in kernels[name]):
+                us += t
+        rec["device_ms_all_calls"] = us / 1e3 / 10
+        rec["device_ms_per_call"] = rec["device_ms_all_calls"] / len(
+            calls[name])
+    out[name] = rec
+if not check:  # the whole default path, warm, on the recorded images
+    import statistics, time
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+    st = Stitcher(DEFAULT_CONFIG, device="cuda")
+    st.stitch(images)
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        st.stitch(images)
+        walls.append(time.perf_counter() - t)
+    out["stitch_warm_s"] = walls
+    out["stitch_warm_median_s"] = statistics.median(walls)
+print("CHILD " + json.dumps(out), flush=True)
+"""
+
+
+def run_tree(tree: Path, inputs: Path, check: bool) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD, str(tree.resolve()), str(inputs),
+         "1" if check else "0"], capture_output=True, text=True,
+        timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n"
+                           f"{proc.stderr[-4000:]}")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("CHILD ")]
+    return json.loads(line[-1][len("CHILD "):])
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--parent", required=True, type=Path,
+                   help="checkout of the earlier commit")
+    p.add_argument("--check", action="store_true",
+                   help="compare with the plain versions only; no timing")
+    p.add_argument("--out", type=Path, default=None)
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    here = Path.cwd()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    results = [{"nvidia_smi": smi}]
+    results.append({"ptxas": {"parent": ptxas_report(args.parent),
+                              "this": ptxas_report(here)}})
+    print(json.dumps(results[-1]), flush=True)
+    (here / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=here / "build") as tmp:
+        inputs = Path(tmp) / "calls.pt"
+        results.append({"recorded_calls": record_inputs(inputs)})
+        print(json.dumps(results[-1]), flush=True)
+        order = [args.parent, here] if args.check else [
+            args.parent, here, here, args.parent]
+        for tree in order:
+            label = "parent" if tree == args.parent else "this"
+            results.append({"run": label, **run_tree(tree, inputs,
+                                                     args.check)})
+            print(json.dumps(results[-1]), flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -213,7 +213,8 @@ def test_kernel_b1_matches_plain(cuda_device, i):
 @pytest.mark.parametrize("asymmetric", [False, True])
 def test_kernel_b5_matches_plain_and_b4(cuda_device, asymmetric):
     """B5 counts exact against the plain per-pair loop, and equal to the
-    counts of two B4 launches per pair on the card (one shared L1 loop)."""
+    ratio counts of one B4 launch per pair on the card (the same
+    ascending L1 sum, so the same bits)."""
     desc, valid, pairs = _pair_inputs(asymmetric)
     plain = distance.pair_match_counts(T(desc), T(valid), T(pairs))
     d, v, p = (T(a).to(cuda_device) for a in (desc, valid, pairs))
@@ -245,11 +246,81 @@ def test_kernel_b7_honours_masks(cuda_device):
     assert (d1g.cpu().numpy()[~qv] > 1e37).all()
 
 
+def _bidir_inputs(case):
+    """Kernel B4's cases: holed masks on both sides with live counts that
+    are not a multiple of the 64-row tile, and duplicated rows across tile
+    edges (exact d1 ties between tiles, d1 = 0)."""
+    if case == "holes":
+        qry, ref, qv, rv = _masked_2nn_inputs()
+        rv[60:70] = False
+        rv[430:] = False
+        ref[61] = qry[5]  # a masked exact match never wins
+        return qry, ref, qv, rv
+    rng = np.random.default_rng(21)
+    qry = rng.random((300, 128), dtype=np.float32)
+    ref = rng.random((260, 128), dtype=np.float32)
+    ref[64] = ref[63]
+    ref[199] = ref[63]
+    ref[130] = ref[10]
+    qry[63] = qry[64] = qry[128] = ref[63]
+    qry[100] = ref[130]
+    return qry, ref, np.arange(300) < 250, np.arange(260) < 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["holes", "dups"])
+def test_kernel_b4_bidir_matches_plain_and_b7(cuda_device, case):
+    """B4 in both directions: d1 / d2 rtol 1e-5 against the plain version,
+    i1 equal where the 2-NN gap exceeds 1e-4 d1, invalid rows at BIG,
+    masked rows never win; equal bits to B7 run each way (the same
+    ascending summation) and to a second B4 run."""
+    qry, ref, qv, rv = _bidir_inputs(case)
+    g = [T(a).to(cuda_device) for a in (qry, ref, qv, rv)]
+    got = distance.two_nearest_bidir(*g)
+    again = distance.two_nearest_bidir(*g)
+    one_way = (distance.two_nearest(*g),
+               distance.two_nearest(g[1], g[0], g[3], g[2]))
+    torch.cuda.synchronize()
+    plain = (distance.two_nearest_plain(*(T(a) for a in (qry, ref, qv, rv))),
+             distance.two_nearest_plain(*(T(a) for a in (ref, qry, rv, qv))))
+    for side, ok, other_ok in ((0, qv, rv), (1, rv, qv)):
+        d1g, d2g, i1g = (t.cpu() for t in got[side])
+        d1c, d2c, i1c = plain[side]
+        np.testing.assert_allclose(d1g[ok].numpy(), d1c[ok].numpy(),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(d2g[ok].numpy(), d2c[ok].numpy(),
+                                   rtol=1e-5)
+        clear = ok & ((d2c - d1c) > 1e-4 * d1c).numpy()
+        np.testing.assert_array_equal(i1g.numpy()[clear], i1c.numpy()[clear])
+        assert other_ok[i1g.numpy()[ok]].all(), "a masked row won"
+        assert (d1g.numpy()[~ok] > 1e37).all()
+        assert (d2g.numpy()[~ok] > 1e37).all()
+        for a, b, c in zip(got[side], one_way[side], again[side]):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    if case == "dups":
+        d1q, d2q, i1q = (t.cpu() for t in got[0])
+        assert d1q[63] == d2q[63] == 0 and int(i1q[63]) == 63
+
+
+@pytest.mark.cuda
+def test_kernel_walks_are_deterministic(cuda_device):
+    """B2 and B3 twice on the same inputs give the same bits."""
+    from computervisionimagestich2_tpu_torch.ops import sift_walks
+
+    g = [T(a).to(cuda_device) for a in _walk_inputs()]
+    h = [sift_walks.orientation_hist(*g[:5], g[6], 17)[0] for _ in range(2)]
+    d = [sift_walks.descriptors(*g, 28)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(h[0], h[1]) and torch.equal(d[0], d[1])
+    assert float(d[0].abs().sum()) > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("config", ["default", "slice"])
 def test_slice_on_card_goes_through_the_kernels(cuda_device, config):
     """A small stitch on the card launches every kernel of its path (all
-    six under DEFAULT_CONFIG; no B1 / B5 on the chain slice) and gives the
+    six under DEFAULT_CONFIG; no B1 / B5 on the chain slice; B7, the
+    one-direction 2-NN, on neither) and gives the
     canvas of the CPU run: shape within +-3 px, MAD <= 3 u8 levels (the
     end-to-end gate of tests/test_torch_stitch.py)."""
     img = _scene()
@@ -266,8 +337,8 @@ def test_slice_on_card_goes_through_the_kernels(cuda_device, config):
     _native.reset_launch_counts()
     out = Stitcher(cfg, device=cuda_device).stitch(crops)
     counts = _native.launch_counts()
-    off_path = set() if config == "default" else {"detect_compact",
-                                                   "pair_match_counts"}
+    off_path = {"l1_two_nearest"} if config == "default" else {
+        "detect_compact", "pair_match_counts", "l1_two_nearest"}
     assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
     ref = Stitcher(cfg, device="cpu").stitch(crops)
     assert abs(out.shape[0] - ref.shape[0]) <= 3, (out.shape, ref.shape)
@@ -315,7 +386,8 @@ def test_incremental_on_card_goes_through_the_kernels(cuda_device, shapes):
     _native.reset_launch_counts()
     out = Stitcher(cfg, device=cuda_device).stitch(crops)
     counts = _native.launch_counts()
-    off_path = set() if shapes == "uniform" else {"pair_match_counts"}
+    off_path = {"l1_two_nearest"} | (
+        set() if shapes == "uniform" else {"pair_match_counts"})
     assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
     _assert_close_canvas(out, Stitcher(cfg, device="cpu").stitch(crops))
 
@@ -323,7 +395,7 @@ def test_incremental_on_card_goes_through_the_kernels(cuda_device, shapes):
 @pytest.mark.cuda
 def test_stream_on_card_goes_through_the_kernels(cuda_device):
     """Three frames through StreamingStitcher on the card: the stream
-    launches B1-B4 and B6, never B5; the canvas sizes after each frame
+    launches B1-B4 and B6, never B5 or B7; the canvas sizes after each frame
     equal the CPU stream's and the final canvases agree within the
     end-to-end gate."""
     from computervisionimagestich2_tpu_torch.models.streaming import (
@@ -336,7 +408,7 @@ def test_stream_on_card_goes_through_the_kernels(cuda_device):
     _native.reset_launch_counts()
     sizes = [ss.push(f) for f in frames]
     counts = _native.launch_counts()
-    assert all((c == 0) == (k == "pair_match_counts")
+    assert all((c == 0) == (k in ("pair_match_counts", "l1_two_nearest"))
                for k, c in counts.items()), counts
     ref = StreamingStitcher(cfg, device="cpu")
     assert sizes == [ref.push(f) for f in frames]

@@ -114,6 +114,88 @@ def test_two_nearest_ties_and_dead_refs():
     assert i1[1] == 1 and d1[1] == d2[1] == 0.0
 
 
+def _tiled_bidir_plain(q, r, qv, rv, tile=tdist.TILE):
+    """Kernel B4's plan in plain PyTorch: per-tile top-2s of each query
+    over each 64-wide reference tile and of each reference over each
+    64-wide query tile, indices made global, then ``merge_top2_plain``."""
+    def side(rows, other, rows_ok, other_ok):
+        parts = [tdist.two_nearest_plain(rows, other[s:s + tile], rows_ok,
+                                         other_ok[s:s + tile])
+                 for s in range(0, other.shape[0], tile)]
+        d1, d2, i1 = (torch.stack(x) for x in zip(*parts))
+        i1 = i1 + torch.arange(0, other.shape[0], tile)[:, None]
+        return tdist.merge_top2_plain(d1, d2, i1, rows_ok)
+    return side(q, r, qv, rv), side(r, q, rv, qv)
+
+
+def _merge_case(case):
+    """Seeded inputs for the tiled merge: duplicated descriptors across
+    tile edges (exact d1 ties between tiles), small-integer descriptors
+    (many exact ties), holed masks on both sides, and live counts that are
+    not a multiple of 64."""
+    rng = np.random.default_rng({"dups": 1, "ints": 2, "holes": 3}[case])
+    nb, na = (150, 200) if case != "holes" else (200, 256)
+    if case == "ints":
+        q = rng.integers(0, 3, (nb, 128)).astype(np.float32)
+        r = rng.integers(0, 3, (na, 128)).astype(np.float32)
+    else:
+        q = rng.random((nb, 128), dtype=np.float32)
+        r = rng.random((na, 128), dtype=np.float32)
+    qv, rv = np.ones(nb, bool), np.ones(na, bool)
+    if case == "dups":  # the same reference on both sides of tile edges
+        r[64] = r[63]
+        r[130] = r[10]
+        r[199] = r[64]
+        q[63] = q[64] = r[63]          # d1 = 0 at 63 and 64, and at 199
+        q[100] = r[130]
+        q[127] = r[128] = q[128]
+    if case == "holes":
+        rv[60:70] = False              # across the first tile edge
+        rv[173:] = False               # 173 live references
+        qv[[0, 63, 64, 65, 127]] = False
+        qv[149:] = False               # 149 live queries
+        r[61] = q[5]                   # masked exact match never wins
+    return q, r, qv, rv
+
+
+@pytest.mark.parametrize("case", ["dups", "ints", "holes"])
+def test_tiled_merge_equals_untiled_plain(case):
+    """Per-tile partial top-2s over 64-wide tiles, merged in ascending
+    tile order by ``merge_top2_plain``, equal the untiled
+    ``two_nearest_plain`` bit for bit in both directions: d1 and d2 on
+    every row (BIG on invalid ones), i1 on valid rows."""
+    q, r, qv, rv = (T(a) for a in _merge_case(case))
+    tiled = _tiled_bidir_plain(q, r, qv, rv)
+    untiled = (tdist.two_nearest_plain(q, r, qv, rv),
+               tdist.two_nearest_plain(r, q, rv, qv))
+    ties = 0
+    for (d1t, d2t, i1t), (d1u, d2u, i1u), ok in zip(tiled, untiled,
+                                                    (qv, rv)):
+        assert torch.equal(d1t, d1u) and torch.equal(d2t, d2u)
+        assert torch.equal(i1t[ok], i1u[ok])
+        assert (i1t[~ok] == 0).all()
+        ties += int(((d1u == d2u) & ok).sum())
+    if case in ("dups", "ints"):
+        assert ties > 0  # the case does exercise exact ties
+
+
+def test_merge_top2_plain_ties_and_order():
+    """Two tiles tied at d1: the earlier tile's index wins and d2 = d1; a
+    later, strictly smaller d1 wins and pushes the old d1 into d2; a tile
+    of BIG (no valid entry) changes nothing; invalid rows get BIG."""
+    big = float(np.float32(tdist.BIG))
+    d1 = T(np.array([[5.0, 5.0, 7.0], [5.0, 3.0, big], [big] * 3],
+                    np.float32))
+    d2 = T(np.array([[9.0, 6.0, 8.0], [6.0, 6.0, big], [big] * 3],
+                    np.float32))
+    i1 = T(np.array([[3, 3, 1], [70, 80, 0], [0, 0, 0]]))
+    ok = T(np.array([True, True, False]))
+    m1, m2, mi = tdist.merge_top2_plain(d1, d2, i1, ok)
+    assert m1.tolist() == [5.0, 3.0, big]
+    assert m2.tolist() == [5.0, 5.0, big]
+    assert mi.tolist() == [3, 80, 0]
+
+
 def test_match_features_bidir_equal(jax_feats):
     """Equal pairs and n_raw in both directions."""
     stacked, _ = jax_feats
