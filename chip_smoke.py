@@ -20,9 +20,10 @@ phase with its result and seconds:
    on the card, with the time of each, of PyTorch's own call for the same
    function where one exists (``library_ms``, timed here and used nowhere
    in the port) and of the least time the card could take (the bound,
-   from these inputs: see ``bound``). B2, B3 and B4 must give the same
-   bits twice; B4 the bits of B7 run each way; B5 the ratio counts of B4
-   on every pair;
+   from these inputs: see ``bound``). B2, B3, B4 and B5 must give the
+   same bits twice; B4 the bits of B7 run each way; B5 the ratio counts of
+   B4 on every pair; B2 is also timed with no live keypoint (what its
+   launch alone costs);
 4. warm default-path stitches of the same images: each kernel's launch
    count in one run (all six of the path must have launched, B4 once per
    edge), the median time of three runs with the stage times, agreement
@@ -38,7 +39,13 @@ phase with its result and seconds:
    version on a reference mask with a hole inside the live prefix;
 7. the default path on four scrambled 1440x1080 images (the north-star
    size): canvas, discovered edges and start, SIFT and match telemetry,
-   cold and warm times, stage times and peak device memory;
+   cold and warm times, stage times and peak device memory; then kernel
+   B5 alone on the features of ten 512x384 frames (45 pairs), of four
+   1440x1080 frames, and of ten at the extractor's full capacity (9,728
+   slots, so the pairs go in several chunks; not held against plain, which
+   would take minutes): equal counts twice, the counts of one B4 launch
+   per pair, device time beside the bound, and the call's peak memory
+   within the scratch budget;
 8. the command line (``python -m computervisionimagestich2_tpu_torch.cli
    --timing``, bucketed canvases by default) on the crops of phase 3 as
    1.bmp..4.bmp, in a subprocess that must load neither jax nor any module
@@ -64,6 +71,11 @@ phase with its result and seconds:
 In phases 4, 5 and 8-11 every launch count is set to 0 just before the
 path runs and read just after; each path must launch each of its kernels
 (B7, the one-direction 2-NN, belongs to the matcher API of phase 6 only).
+
+A redesigned kernel is timed beside its earlier design, from an earlier
+commit, by ``computervisionimagestich2_tpu_torch/tools/kernel_ab.py``; B4's
+earlier design (B7 launched each way) is still in the library and is timed
+here.
 
 The line before the last is the per-kernel JSON summary (B1-B7), the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -108,7 +120,8 @@ DEVICE_KERNELS = {
     "sift_orientation_hist": ("orientation_hist_kernel",),
     "sift_descriptors": ("descriptors_kernel",),
     "l1_two_nearest_bidir": ("l1_bidir_tile_kernel", "l1_bidir_merge_kernel"),
-    "pair_match_counts": ("pair_counts_kernel",),
+    "pair_match_counts": ("pair_plan_kernel", "pair_tile_kernel",
+                          "pair_count_kernel"),
     "warp_image": ("warp_image_kernel",),
     "l1_two_nearest": ("l1_two_nearest_kernel",),
 }
@@ -166,11 +179,31 @@ def make_scene(rng, h: int, w: int, scale: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def crops(h: int, w: int, step: int, scale: int, seed: int):
-    """Four overlapping [h, w, 3] u8 crops of one deterministic scene."""
-    scene = make_scene(np.random.default_rng(seed), h, w + 3 * step, scale)
+def crops(h: int, w: int, step: int, scale: int, seed: int, n: int = 4):
+    """``n`` overlapping [h, w, 3] u8 crops of one deterministic scene."""
+    scene = make_scene(np.random.default_rng(seed), h, w + (n - 1) * step,
+                       scale)
     return [np.ascontiguousarray(scene[:, i * step: i * step + w])
-            for i in range(4)]
+            for i in range(n)]
+
+
+def pair_inputs(images, trimmed: bool = True):
+    """Kernel B5's inputs for ``images``: (desc [N, CAP, 128], valid
+    [N, CAP]) of the stacked features and every i<j pair. ``trimmed``: as
+    graph ordering hands them over, cut to the live prefix rounded up to
+    512 slots; else at the extractor's full capacity."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+
+    st = Stitcher(DEFAULT_CONFIG, device="cuda")
+    st.prepare(images)
+    feats = st._matching_feats() if trimmed else st._feats_stacked
+    n = len(images)
+    pairs = torch.tensor([(i, j) for i in range(n) for j in range(i + 1, n)],
+                         dtype=torch.int32, device=feats.desc.device)
+    return feats.desc.contiguous(), feats.valid.contiguous(), pairs
 
 
 def scrambled(images):
@@ -321,6 +354,78 @@ def near_ratio(desc, valid, pairs, ratio: float) -> list:
     return near
 
 
+def check_b5(a: tuple, plain: bool = True):
+    """Kernel B5 on inputs ``a`` (desc, valid, pairs[, ratio]): equal counts
+    in two runs; exactly the ratio counts of one B4 launch per pair; with
+    ``plain``, the plain version's counts, short of the queries within 1e-5
+    of the ratio. Returns (counts, largest difference from plain, those
+    queries per pair if any count differs), the last two None without
+    ``plain``."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    pk = distance.pair_match_counts(*a)
+    assert torch.equal(pk, distance.pair_match_counts(*a)), \
+        "B5 is not deterministic"
+    desc, valid, pairs = a[:3]
+    ratio = a[3] if len(a) > 3 else 0.5
+    for p, (i, j) in enumerate(pairs.tolist()):
+        okq, _, okr, _ = distance.ratio_match_bidir(desc[j], desc[i],
+                                                    valid[j], valid[i], ratio)
+        b4 = [int(okq.sum()), int(okr.sum())]
+        assert b4 == pk[p].tolist(), ("B5 != B4 counts", i, j, b4,
+                                      pk[p].tolist())
+    if not plain:
+        return pk, None, None
+    pp = distance.pair_match_counts_plain(*a)
+    diff = (pk - pp).abs()
+    near = None
+    if not torch.equal(pk, pp):
+        near = near_ratio(desc, valid, pairs, ratio)
+        print(json.dumps({"b5_differs": {"kernel": pk.tolist(),
+                                         "plain": pp.tolist(),
+                                         "near_ratio": near}}), flush=True)
+        assert (diff.cpu() <= torch.tensor(near)).all(), "B5 disagrees"
+    return pk, float(diff.max()), near
+
+
+def b5_at(images, plain: bool = True, trimmed: bool = True) -> dict:
+    """Kernel B5 on the features of ``images`` (``pair_inputs``):
+    ``check_b5``, its device time beside its bound, and the device memory
+    the call takes at its peak (scratch and result), which must stay
+    within the budget."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+
+    a = (*pair_inputs(images, trimmed),
+         DEFAULT_CONFIG.match.ratio_threshold)
+    pk, diff, near = check_b5(a, plain)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    distance.pair_match_counts(*a)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    row = {"images": int(a[0].shape[0]), "slots": int(a[0].shape[1]),
+           "live": a[1].sum(dim=1).tolist(), "pairs": int(a[2].shape[0]),
+           "chunk": distance.pair_chunk(a[0].shape[1], a[2].shape[0],
+                                        distance.PAIR_SCRATCH_BYTES),
+           "scratch_budget_bytes": distance.PAIR_SCRATCH_BYTES,
+           "peak_call_bytes": int(peak), "max_abs_err": diff,
+           "near_ratio": near, "equals_b4_counts": True,
+           "counts_sum": int(pk.sum()),
+           **kernel_ms(lambda: distance.pair_match_counts(*a),
+                       "pair_match_counts"),
+           **kernel_bound("pair_match_counts", a)}
+    assert peak <= distance.PAIR_SCRATCH_BYTES + (1 << 20), row
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take for work that moves ``nbytes``
     (each input read once, each output written once) and does ``ops``
@@ -459,8 +564,8 @@ def check_kernels(rec: Recorder) -> list[dict]:
     (coords, valid, n_total); B2 raw histograms rtol 1e-5 (atol 1e-5 x
     max), B3 atol 2e-6, B4 d1/d2 rtol 1e-5 with i1 equal where the 2-NN gap
     exceeds 1e-4 d1, in both directions; B5 exact counts, short of the
-    queries within 1e-5 of the ratio; B6 exact. B2, B3 and B4 give the same
-    bits twice; B4 the bits of B7 each way; B5 the ratio counts of one B4
+    queries within 1e-5 of the ratio; B6 exact. B2, B3, B4 and B5 give the
+    same bits twice; B4 the bits of B7 each way; B5 the ratio counts of one B4
     launch per pair, exactly. Each row carries the bound of the first call
     and the bounds of the panorama's calls summed."""
     import torch
@@ -509,7 +614,13 @@ def check_kernels(rec: Recorder) -> list[dict]:
         lambda: sift_walks.orientation_hist_plain(*a),
         library_note=no_library, keypoints=int(a[5][0]),
         slots=int(a[2].shape[0]), radius=a[6],
-        window_pixels=b2_pixels(*a))
+        window_pixels=b2_pixels(*a),
+        no_keypoint_launch_ms=device_ms(
+            lambda: sift_walks.orientation_hist(
+                *a[:5], torch.zeros_like(a[5]), a[6]),
+            "sift_orientation_hist"),
+        no_keypoint_launch="the same call with n_valid = 0: the same grid, "
+                           "every warp writes its zero row and exits")
 
     a = args["sift_descriptors"]
     dk, okk = sift_walks.descriptors(*a)
@@ -568,25 +679,8 @@ def check_kernels(rec: Recorder) -> list[dict]:
         i1_equal_frac=i1_equal)
 
     a = args["pair_match_counts"]
-    pk = distance.pair_match_counts(*a)
-    pp = distance.pair_match_counts_plain(*a)
-    desc, valid, pairs = a[:3]
-    ratio = a[3] if len(a) > 3 else 0.5
-    for p, (i, j) in enumerate(pairs.tolist()):
-        okq, _, okr, _ = distance.ratio_match_bidir(desc[j], desc[i],
-                                                    valid[j], valid[i], ratio)
-        b4 = [int(okq.sum()), int(okr.sum())]
-        assert b4 == pk[p].tolist(), ("B5 != B4 counts", i, j, b4,
-                                      pk[p].tolist())
-    diff = (pk - pp).abs()
-    near = None
-    if not torch.equal(pk, pp):
-        near = near_ratio(*a)
-        print(json.dumps({"b5_differs": {"kernel": pk.tolist(),
-                                         "plain": pp.tolist(),
-                                         "near_ratio": near}}), flush=True)
-        assert (diff.cpu() <= torch.tensor(near)).all(), "B5 disagrees"
-    add("pair_match_counts", diff.max(),
+    pk, diff, near = check_b5(a)
+    add("pair_match_counts", diff,
         lambda: distance.pair_match_counts(*a),
         lambda: distance.pair_match_counts_plain(*a),
         library_note=no_library, images=int(a[0].shape[0]),
@@ -1107,6 +1201,17 @@ def main() -> int:
          stage_s_cold=stages_big, stage_s_warm=dict(st.stage_times),
          launches_per_run=launches_big, **telemetry,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # -- 7b. B5 at ten frames and at the north-star size
+    t = time.perf_counter()
+    b5 = next(k for k in kernels if k["name"] == "pair_match_counts")
+    b5["at_10x512x384"] = b5_at(crops(512, 384, 224, 2, seed=0, n=10))
+    b5["at_4x1440x1080"] = b5_at(crops(1440, 1080, 630, 6, seed=1))
+    b5["at_10x1440x1080_full_capacity"] = b5_at(
+        crops(1440, 1080, 630, 6, seed=1, n=10), plain=False, trimmed=False)
+    assert b5["at_10x1440x1080_full_capacity"]["chunk"] < 45
+    emit("pair_counts_other_inputs", t,
+         **{k: v for k, v in b5.items() if k.startswith("at_")})
 
     # -- 8. the command line, default flags (bucketed canvases)
     t = time.perf_counter()

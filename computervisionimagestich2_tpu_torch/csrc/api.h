@@ -62,13 +62,18 @@ cudaError_t cvs_l1_two_nearest_bidir(const float* qry, const float* ref,
                                      cudaStream_t stream);
 
 // B5: Lowe-ratio match counts out [n_pairs, 2] (zeroed by the caller) over
-// desc [n, cap, 128] with valid [n, cap]; pairs [n_pairs, 2] = (i, j).
-// out[p, 0]: queries = image j against references = image i; out[p, 1]:
-// the reverse.
+// desc [n_images, cap, 128] with valid [n_images, cap]; pairs [n_pairs, 2] =
+// (i, j). out[p, 0]: queries = image j against references = image i;
+// out[p, 1]: the reverse. The pairs are walked `chunk` at a time. Scratch:
+// live [n_images] ints, tile_start [chunk + 1] ints, part [chunk * 4 *
+// ceil(cap / 64) * cap] floats. Three launches per chunk (plan, tile pass,
+// merge and count).
 cudaError_t cvs_pair_match_counts(const float* desc,
-                                  const unsigned char* valid, int cap,
-                                  const int* pairs, int n_pairs, float ratio,
-                                  int* out, cudaStream_t stream);
+                                  const unsigned char* valid, int n_images,
+                                  int cap, const int* pairs, int n_pairs,
+                                  float ratio, int chunk, int* live,
+                                  int* tile_start, float* part, int* out,
+                                  cudaStream_t stream);
 
 // B6: inverse warp of src [src_h, src_w, channels] onto out
 // [h_out, w_out, channels]; params: [10] = 8 bilinear coefficients,

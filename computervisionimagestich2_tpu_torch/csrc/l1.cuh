@@ -1,14 +1,16 @@
-// The exact L1 2-NN inner loop shared by kernels B7 (l1_2nn.cu) and B5
-// (pair_counts.cu). Every L1 kernel of the port (B4's tile loop in
-// l1_2nn.cu too) sums |q - r| over the 128 features in ascending order into
-// one float from 0, so they all give the same distance bits, and an image
-// pair's match-graph count (B5) equals the count of one B4 launch on it.
+// The exact L1 2-NN inner loop of kernel B7 (l1_2nn.cu), and what every L1
+// kernel of the port shares: the descriptor length, BIG, the top-2 record
+// and the live bound of a mask. Every L1 kernel (the tile pass of B4 and B5
+// in l1_tile.cuh too) sums |q - r| over the 128 features in ascending order
+// into one float from 0, so they all give the same distance bits, and an
+// image pair's match-graph count (B5) equals the count of one B4 launch on
+// it.
 //
-// Layout: a block of kQueries threads, one query per thread, its 128 floats
-// in registers; reference rows staged kRefTile at a time in shared memory,
-// every thread reading the same shared address at a time (a broadcast).
-// Masks are honoured row by row: a reference row whose mask is false never
-// wins, and the loop stops one past the last true mask entry.
+// Layout of the loop: a block of kQueries threads, one query per thread, its
+// 128 floats in registers; reference rows staged kRefTile at a time in
+// shared memory, every thread reading the same shared address at a time (a
+// broadcast). Masks are honoured row by row: a reference row whose mask is
+// false never wins, and the loop stops one past the last true mask entry.
 #pragma once
 #include <cuda_runtime.h>
 

@@ -15,11 +15,9 @@
 // FP32 pipes (no tensor-core form of L1 exists); device memory traffic is
 // only the two descriptor sets and the small per-tile partials. The design
 // against that bound:
-// - A block owns a 64-query x 64-reference tile: 256 threads, each with a
-//   4 x 4 micro-tile of accumulators, so every thread runs 16 independent
-//   sums and every feature read from shared memory feeds 4 of them.
-//   Features are staged 32 at a time, transposed, in shared memory, with
-//   the next chunk prefetched into registers while this one is summed.
+// - A block owns a 64-query x 64-reference tile and computes its distances
+//   with the tile pass of l1_tile.cuh (256 threads, 4 x 4 accumulators
+//   each, features staged 32 at a time), which B5 runs too.
 // - Each tile yields both directions: its 64 x 64 distances go to shared
 //   memory, one thread scans each query row and one each reference column
 //   in ascending index with a strict `<`, and each writes a partial top-2
@@ -37,7 +35,7 @@
 //   float from 0, as l1.cuh does, and |a - b| = |b - a| in IEEE
 //   arithmetic, so both directions and B5's counts see the same bits.
 #include "api.h"
-#include "l1.cuh"
+#include "l1_tile.cuh"
 
 namespace {
 
@@ -73,46 +71,7 @@ l1_two_nearest_kernel(const float* __restrict__ qry,
 }
 
 // ------------------------------------------------------------------ B4
-constexpr int kTile = 64;           // queries and references per tile
-constexpr int kChunk = 32;          // features staged per step
-constexpr int kTileThreads = 256;   // 16 x 16 threads, 4 x 4 distances each
 constexpr int kMergeThreads = 256;
-constexpr int kStage = kChunk * kTile;  // floats of one staged side
-constexpr int kDistPitch = kTile + 1;   // conflict-free row and column scans
-static_assert(kTile * kDistPitch <= 4 * kStage, "distance tile must fit");
-
-// This thread's share of one chunk: rows [row0, row0 + 64) of src [n, 128],
-// features [c * 32, c * 32 + 32), as two float4 (zeros past n). Lane l of a
-// warp takes row l (mod 64), so the transposed stores below hit 32 banks.
-__device__ __forceinline__ void load_chunk(const float* __restrict__ src,
-                                           int n, int row0, int c,
-                                           float4 (&v)[2]) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int e = threadIdx.x + s * kTileThreads;
-    const int row = e & (kTile - 1);
-    const int col4 = e >> 6;  // 0..7
-    v[s] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < n)
-      v[s] = reinterpret_cast<const float4*>(
-          src + (long long)(row0 + row) * kFeat + c * kChunk)[col4];
-  }
-}
-
-// Store a loaded share transposed: dst[f][row], f in [0, 32).
-__device__ __forceinline__ void store_chunk(float* __restrict__ dst,
-                                            const float4 (&v)[2]) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int e = threadIdx.x + s * kTileThreads;
-    const int row = e & (kTile - 1);
-    const int f = (e >> 6) * 4;
-    dst[(f + 0) * kTile + row] = v[s].x;
-    dst[(f + 1) * kTile + row] = v[s].y;
-    dst[(f + 2) * kTile + row] = v[s].z;
-    dst[(f + 3) * kTile + row] = v[s].w;
-  }
-}
 
 // Partial top-2s: part_q_* [n_rt_cap, nb] (query row over reference tile
 // rt, at rt * nb + q) and part_r_* [n_qt_cap, na] (reference row over query
@@ -128,86 +87,21 @@ l1_bidir_tile_kernel(const float* __restrict__ qry,
                      float* __restrict__ part_r_d1,
                      float* __restrict__ part_r_d2,
                      int* __restrict__ part_r_i1) {
-  // [buffer][query | reference][feature][row]; after the feature loop the
-  // same bytes hold the tile's distances, [query][kDistPitch]
-  __shared__ __align__(16) float stage[4 * kStage];
-  __shared__ unsigned char q_ok[kTile];
-  __shared__ unsigned char r_ok[kTile];
+  __shared__ TileSmem sm;
   const int n_qt = (live_bound<kTileThreads>(qry_valid, nb) + kTile - 1) /
                    kTile;
   const int n_rt = (live_bound<kTileThreads>(ref_valid, na) + kTile - 1) /
                    kTile;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // references tx * 4 .. tx * 4 + 3 of the tile
-  const int ty = tid >> 4;  // queries ty * 4 .. ty * 4 + 3
   for (int t = blockIdx.x; t < n_qt * n_rt; t += gridDim.x) {
     const int qt = t / n_rt;
     const int rt = t - qt * n_rt;
     const int q0 = qt * kTile;
     const int r0 = rt * kTile;
-    __syncthreads();  // the previous tile's scans are done with `stage`
-    if (tid < kTile) {
-      q_ok[tid] = q0 + tid < nb && qry_valid[q0 + tid];
-    } else if (tid < 2 * kTile) {
-      const int j = tid - kTile;
-      r_ok[j] = r0 + j < na && ref_valid[r0 + j];
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float4 gq[2], gr[2];
-    load_chunk(qry, nb, q0, 0, gq);
-    load_chunk(ref, na, r0, 0, gr);
-#pragma unroll 1
-    for (int c = 0; c < kFeat / kChunk; ++c) {
-      float* sq = stage + (c & 1) * 2 * kStage;
-      float* sr = sq + kStage;
-      // buffer c & 1 was last read in step c - 2, before step c - 1's sync
-      store_chunk(sq, gq);
-      store_chunk(sr, gr);
-      __syncthreads();
-      if (c + 1 < kFeat / kChunk) {
-        load_chunk(qry, nb, q0, c + 1, gq);
-        load_chunk(ref, na, r0, c + 1, gr);
-      }
-#pragma unroll
-      for (int f = 0; f < kChunk; ++f) {
-        const float4 a = *reinterpret_cast<const float4*>(sq + f * kTile +
-                                                          ty * 4);
-        const float4 b = *reinterpret_cast<const float4*>(sr + f * kTile +
-                                                          tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += fabsf(av[i] - bv[j]);
-      }
-    }
-    __syncthreads();  // every thread is done reading the staged features
-    float* dist = stage;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dist[(ty * 4 + i) * kDistPitch + tx * 4 + j] = acc[i][j];
-    __syncthreads();
+    l1_tile_distances(qry, ref, qry_valid, ref_valid, nb, na, q0, r0, sm);
     if (tid < kTile) {  // query row tid over the tile's references
       const int q = q0 + tid;
-      Top2 p{kBig, kBig, 0};
-      for (int j = 0; j < kTile; ++j) {
-        if (!r_ok[j]) continue;
-        const float d = dist[tid * kDistPitch + j];
-        if (d < p.d1) {
-          p.d2 = p.d1;
-          p.d1 = d;
-          p.i1 = r0 + j;
-        } else if (d < p.d2) {
-          p.d2 = d;
-        }
-      }
+      const Top2 p = tile_scan(sm.stage + tid * kDistPitch, 1, sm.r_ok, r0);
       if (q < nb) {
         const long long k = (long long)rt * nb + q;
         part_q_d1[k] = p.d1;
@@ -217,18 +111,7 @@ l1_bidir_tile_kernel(const float* __restrict__ qry,
     } else if (tid < 2 * kTile) {  // reference column over the queries
       const int j = tid - kTile;
       const int r = r0 + j;
-      Top2 p{kBig, kBig, 0};
-      for (int i = 0; i < kTile; ++i) {
-        if (!q_ok[i]) continue;
-        const float d = dist[i * kDistPitch + j];
-        if (d < p.d1) {
-          p.d2 = p.d1;
-          p.d1 = d;
-          p.i1 = q0 + i;
-        } else if (d < p.d2) {
-          p.d2 = d;
-        }
-      }
+      const Top2 p = tile_scan(sm.stage + j, kDistPitch, sm.q_ok, q0);
       if (r < na) {
         const long long k = (long long)qt * na + r;
         part_r_d1[k] = p.d1;
@@ -271,14 +154,7 @@ l1_bidir_merge_kernel(const unsigned char* __restrict__ qry_valid,
     const int* pi = qside ? part_q_i1 : part_r_i1;
     for (int t = 0; live && t < n_tiles; ++t) {
       const long long k = (long long)t * n + row;
-      const float b1 = p1[k];
-      if (b1 < a.d1) {
-        a.d2 = fminf(a.d1, p2[k]);
-        a.d1 = b1;
-        a.i1 = pi[k];
-      } else {
-        a.d2 = fminf(a.d2, b1);
-      }
+      if (merge_top2(a.d1, a.d2, p1[k], p2[k])) a.i1 = pi[k];
     }
   }
   if (row < n) {
@@ -319,16 +195,9 @@ extern "C" cudaError_t cvs_l1_two_nearest_bidir(
   int* part_q_i1 = part_i;
   int* part_r_i1 = part_i + len_q;
   if (n_qt * n_rt > 0) {
-    static int sm_count[64] = {};  // per device, read once
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    int sms = 0;
+    cudaError_t err = sm_count(&sms);
     if (err != cudaSuccess) return err;
-    if (dev < 64) sms = sm_count[dev];
-    if (sms == 0) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err != cudaSuccess) return err;
-      if (dev < 64) sm_count[dev] = sms;
-    }
     const long long grid = n_qt * n_rt < 2LL * sms ? n_qt * n_rt : 2LL * sms;
     l1_bidir_tile_kernel<<<(unsigned)grid, kTileThreads, 0, stream>>>(
         qry, ref, qry_valid, ref_valid, nb, na, part_q_d1, part_q_d2,

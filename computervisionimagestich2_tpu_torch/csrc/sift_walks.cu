@@ -25,6 +25,29 @@
 // from device memory, so the host never synchronises) write zeros and
 // exit.
 //
+// B2's design against that bound: most launches hold few keypoints (a
+// 512x384 frame gives 649, 358, 93, 37, 20, 5, 1, 1 on its eight levels),
+// so a launch lasts as long as one keypoint's chain of pixels, about 130
+// cycles each for a warp, and the design spends threads on shortening it:
+// a block of 256 threads walks one keypoint slot, 2 to 10 pixels a thread
+// for windows of 17^2 to 49^2. (A warp per keypoint, 9 to 75 pixels a
+// lane, was tried first and was slower than the design it replaced:
+// PERF.md has both times.) Each thread
+// keeps its 36 bins in a column of a [bin][thread] shared array (36 KB, no
+// opt-in): a thread touches only its own column, so there are no bank
+// conflicts, no atomics, and no runtime-indexed private array (which the
+// compiler puts in local memory, a 144-byte stack frame). Threads stride
+// over the keypoint's own box, |d| <= min(wr, the level's static radius)
+// clipped to the image, by rows and columns with one division per thread,
+// not per pixel, a few pixels at a time so that their loads overlap; the
+// box bounds are whole numbers, so they are exactly the plain version's
+// |d| <= wr and in-image tests, and r^2 < wr^2 + 0.6 is tested in the same
+// float order. The tail is parallel and in a fixed order: in every warp
+// lane l sums bin l over the warp's 32 columns, starting at its own column
+// so that every step reads 32 different banks, and bins 32..35 are summed
+// by groups of 4 lanes over 4 columns each and a three-step shuffle tree;
+// then 36 threads add the 8 warps' sums in ascending order.
+//
 // B3's design against that bound: each thread keeps its 128 bins in a
 // column of a [bin][thread] array in dynamic shared memory (64 KB), not in
 // a runtime-indexed private array, which the compiler puts in local memory
@@ -36,14 +59,12 @@
 // the +-2.5 support of the spatial hats (it would add nothing). The tail
 // is parallel and in a fixed order: each warp sums 32 bins across the 128
 // columns (4 column reads per lane, then a shuffle-down tree), and both
-// norms are block shuffle reductions. B2 still keeps its 36 bins in a
-// private array (a 144-byte stack frame) and sums them serially per bin;
-// it is the next walk to redesign.
+// norms are block shuffle reductions.
 //
 // Determinism: every sum runs in a fixed order, so two runs give the same
 // bits, and with no float atomics. The summation orders differ from the
-// plain version's (and B3's from the earlier per-warp design's), so the
-// results agree to f32 rounding: B3 atol 2e-6, B2 rtol 1e-5.
+// plain version's (and from the earlier designs'), so the results agree to
+// f32 rounding: B3 atol 2e-6, B2 rtol 1e-5 (atol 1e-5 x max).
 //
 // Exactness of window membership: compiled with --fmad=false and written
 // in the JAX operation order, so every floor and `<` that decides which
@@ -55,7 +76,8 @@ namespace {
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kEpsF = 1.19209290e-07f;  // VL_EPSILON_F
 constexpr int kOriBins = 36;
-constexpr int kOriThreads = 128;
+constexpr int kOriThreads = 256;
+constexpr int kOriBatch = 2;  // pixels a thread loads before it adds any
 constexpr int kDescBins = 128;  // 4 x 4 spatial x 8 orientation
 constexpr int kDescThreads = 128;
 
@@ -73,21 +95,21 @@ orientation_hist_kernel(const float* __restrict__ mod,
                         const float* __restrict__ sigmas,
                         const int* __restrict__ n_valid, int radius,
                         float* __restrict__ hist) {
-  __shared__ float part[kOriThreads][kOriBins + 1];
+  __shared__ float bins[kOriBins][kOriThreads];
+  __shared__ float part[kOriThreads / 32][kOriBins];
   const int k = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   float* out = hist + (long long)k * kOriBins;
-  bool ok = k < n_valid[0];
-  float x = 0.f, y = 0.f, sigma = 0.f;
-  int xi = 0, yi = 0;
-  if (ok) {
-    x = xs[k];
-    y = ys[k];
-    sigma = sigmas[k];
-    xi = (int)floorf(x + 0.5f);
-    yi = (int)floorf(y + 0.5f);
-    ok = xi >= 0 && xi <= w - 1 && yi >= 0 && yi <= h - 1;
-  }
+  // the slot's entries are read beside the live count, not after it
+  const float x = xs[k];
+  const float y = ys[k];
+  const float sigma = sigmas[k];
+  const int xi = (int)floorf(x + 0.5f);
+  const int yi = (int)floorf(y + 0.5f);
+  const bool ok = k < n_valid[0] && xi >= 0 && xi <= w - 1 && yi >= 0 &&
+                  yi <= h - 1;
   if (!ok) {  // uniform across the block
     if (tid < kOriBins) out[tid] = 0.f;
     return;
@@ -96,40 +118,91 @@ orientation_hist_kernel(const float* __restrict__ mod,
   const float wr = fmaxf(floorf(3.0f * sigmaw), 1.0f);
   const float wr2 = wr * wr + 0.6f;
   const float den = 2.0f * (sigmaw * sigmaw);
-  float acc[kOriBins];
+  float* mine = &bins[0][tid];  // this thread's column: bin b at mine[b * T]
 #pragma unroll
-  for (int b = 0; b < kOriBins; ++b) acc[b] = 0.f;
+  for (int b = 0; b < kOriBins; ++b) mine[b * kOriThreads] = 0.f;
 
-  const int p = 2 * radius + 1;
-  for (int idx = tid; idx < p * p; idx += kOriThreads) {
-    const int dyi = idx / p - radius;
-    const int dxi = idx - (idx / p) * p - radius;
-    const int ix = xi + dxi;
-    const int iy = yi + dyi;
-    if (ix < 0 || ix > w - 1 || iy < 0 || iy > h - 1) continue;
-    const float fdx = (float)dxi;
-    const float fdy = (float)dyi;
-    if (fabsf(fdx) > wr || fabsf(fdy) > wr) continue;
-    const float dx = ((float)xi + fdx) - x;
-    const float dy = ((float)yi + fdy) - y;
-    const float r2 = dx * dx + dy * dy;
-    if (!(r2 < wr2)) continue;
-    const float mw = mod[iy * w + ix] * expf(-r2 / den);
-    const float fbin = 36.0f * ang[iy * w + ix] / kTwoPi;
-    const float b0 = floorf(fbin - 0.5f);
-    const float rbin = fbin - b0 - 0.5f;
-    const int i1 = ((int)b0 + kOriBins) % kOriBins;
-    const int i2 = ((int)b0 + 1 + kOriBins) % kOriBins;
-    acc[i1] += mw * (1.0f - rbin);
-    acc[i2] += mw * rbin;
-  }
+  // the window's box: |d| <= wr (a whole number) inside the level's static
+  // radius and inside the image
+  const int reach = (int)fminf(wr, (float)radius);
+  const int x_lo = max(-reach, -xi);
+  const int y_lo = max(-reach, -yi);
+  const int bw = min(reach, w - 1 - xi) - x_lo + 1;
+  const int bh = min(reach, h - 1 - yi) - y_lo + 1;
+  // pixel tid, tid + T, tid + 2 T, ... of the box in scan order
+  const int step_row = kOriThreads / bw;
+  const int step_col = kOriThreads - step_row * bw;
+  int row = tid / bw;
+  int col = tid - row * bw;
+  while (row < bh) {
+    // kOriBatch pixels at a time: their loads are in flight before the
+    // first bin add
+    int pix[kOriBatch];
+    float r2[kOriBatch];
+    bool in[kOriBatch];
 #pragma unroll
-  for (int b = 0; b < kOriBins; ++b) part[tid][b] = acc[b];
+    for (int u = 0; u < kOriBatch; ++u) {
+      const int dxi = x_lo + col;
+      const int dyi = y_lo + row;
+      const float dx = ((float)xi + (float)dxi) - x;
+      const float dy = ((float)yi + (float)dyi) - y;
+      r2[u] = dx * dx + dy * dy;
+      in[u] = row < bh && r2[u] < wr2;
+      pix[u] = (yi + dyi) * w + (xi + dxi);
+      row += step_row;
+      col += step_col;
+      if (col >= bw) {
+        col -= bw;
+        ++row;
+      }
+    }
+    float m[kOriBatch], a[kOriBatch];
+#pragma unroll
+    for (int u = 0; u < kOriBatch; ++u) {
+      m[u] = in[u] ? mod[pix[u]] : 0.f;
+      a[u] = in[u] ? ang[pix[u]] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kOriBatch; ++u) {
+      if (!in[u]) continue;
+      const float mw = m[u] * expf(-r2[u] / den);
+      const float fbin = 36.0f * a[u] / kTwoPi;
+      const float b0 = floorf(fbin - 0.5f);
+      const float rbin = fbin - b0 - 0.5f;
+      const int i1 = ((int)b0 + kOriBins) % kOriBins;
+      const int i2 = ((int)b0 + 1 + kOriBins) % kOriBins;
+      mine[i1 * kOriThreads] += mw * (1.0f - rbin);
+      mine[i2 * kOriThreads] += mw * rbin;
+    }
+  }
+  __syncwarp();
+  // this warp's 32 columns. Bin `lane` from the lane's own column on: each
+  // step reads 32 different banks
+  const float* cols = &bins[0][warp * 32];
+  float v = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < 32; ++s)
+    v += cols[lane * kOriThreads + ((lane + s) & 31)];
+  part[warp][lane] = v;
+  // bins 32..35: lane l takes bin 32 + (l & 3) over columns 4 (l >> 2) ..
+  // + 3, rotated by l & 3 so that 4 lanes of a group read 4 banks; then the
+  // 8 groups are summed by a shuffle-down tree
+  const int b = 32 + (lane & 3);
+  const int c0 = (lane >> 2) * 4;
+  float u = 0.f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    u += cols[b * kOriThreads + c0 + ((lane + s) & 3)];
+#pragma unroll
+  for (int off = 16; off >= 4; off >>= 1)
+    u += __shfl_down_sync(0xffffffffu, u, off);
+  if (lane < kOriBins - 32) part[warp][32 + lane] = u;
   __syncthreads();
   if (tid < kOriBins) {
-    float s = 0.f;
-    for (int t = 0; t < kOriThreads; ++t) s += part[t][tid];
-    out[tid] = s;
+    float sum = 0.f;
+#pragma unroll
+    for (int g = 0; g < kOriThreads / 32; ++g) sum += part[g][tid];
+    out[tid] = sum;
   }
 }
 

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("detect.cu", "sift_walks.cu", "l1_2nn.cu", "pair_counts.cu",
            "warp.cu")
-HEADERS = ("api.h", "l1.cuh")
+HEADERS = ("api.h", "l1.cuh", "l1_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -60,8 +60,10 @@ _SIGNATURES = {
     #  i1q, d1r, d2r, i1r, stream)
     "cvs_l1_two_nearest_bidir": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P),
-    # (desc, valid, cap, pairs, n_pairs, ratio, out, stream)
-    "cvs_pair_match_counts": (_P, _P, _I, _P, _I, _F, _P, _P),
+    # (desc, valid, n_images, cap, pairs, n_pairs, ratio, chunk, live,
+    #  tile_start, part, out, stream)
+    "cvs_pair_match_counts": (_P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P,
+                              _P),
     # (src, src_h, src_w, channels, params, h_out, w_out, out, stream)
     "cvs_warp_image": (_P, _I, _I, _I, _P, _I, _I, _P, _P),
 }

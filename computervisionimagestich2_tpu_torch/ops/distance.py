@@ -14,8 +14,10 @@ over 64 x 64 tiles, whose per-tile top-2s a second kernel merges
 (``merge_top2_plain`` is that merge in plain PyTorch); on a CPU tensor it
 is ``two_nearest_plain`` run both ways. ``pair_match_counts`` is kernel B5
 (``csrc/pair_counts.cu``, the port of ``pair_match_counts_pallas``): the
-ratio-test counts of many image pairs in one launch, with
-``pair_match_counts_plain`` beside it.
+ratio-test counts of many image pairs from B4's tile pass run over the live
+tiles of every pair, chunked over the pairs within a fixed scratch budget,
+with ``pair_match_counts_plain`` beside it and that plan in plain PyTorch as
+``pair_match_counts_tiled_plain``.
 """
 from __future__ import annotations
 
@@ -176,6 +178,67 @@ def pair_match_counts_plain(desc3: torch.Tensor, valid2: torch.Tensor,
     return out
 
 
+PAIR_SCRATCH_BYTES = 256 << 20  # B5's budget for per-tile partials
+
+
+def pair_chunk(cap: int, n_pairs: int, scratch_bytes: int) -> int:
+    """Pairs per chunk of kernel B5: as many as ``scratch_bytes`` hold the
+    partials of (4 float planes [ceil(cap / 64), cap] each), at least one."""
+    per_pair = 4 * 4 * -(-cap // TILE) * cap
+    return max(1, min(n_pairs, scratch_bytes // max(per_pair, 1)))
+
+
+def _live_bound(mask: torch.Tensor) -> int:
+    """One past the last true entry of a 1-d mask (0 if none)."""
+    hits = torch.nonzero(mask)
+    return int(hits[-1]) + 1 if hits.numel() else 0
+
+
+def pair_match_counts_tiled_plain(desc3: torch.Tensor, valid2: torch.Tensor,
+                                  pairs: torch.Tensor, ratio: float = 0.5,
+                                  scratch_bytes: int = PAIR_SCRATCH_BYTES):
+    """Kernel B5's plan in plain PyTorch, scratch layout included: the pairs
+    in chunks of ``pair_chunk``; per chunk, the live 64 x 64 tiles of every
+    pair write their (d1, d2) partials into the chunk's scratch (left as it
+    was by the chunk before, NaN at first), then every valid row merges its
+    partials over the other side's live tiles (``merge_top2_plain``) and
+    the ratio test counts. Equals ``pair_match_counts_plain`` exactly."""
+    n, cap = desc3.shape[0], desc3.shape[1]
+    n_pairs = pairs.shape[0]
+    out = torch.zeros((n_pairs, 2), dtype=torch.int32, device=desc3.device)
+    if n_pairs == 0 or cap == 0:
+        return out
+    chunk = pair_chunk(cap, n_pairs, scratch_bytes)
+    n_t = -(-cap // TILE)
+    part = torch.full((chunk, 2, 2, n_t, cap), float("nan"),
+                      dtype=torch.float32, device=desc3.device)
+    tiles = [-(-_live_bound(valid2[m]) // TILE) for m in range(n)]
+    plist = pairs.tolist()
+    for p0 in range(0, n_pairs, chunk):
+        todo = plist[p0:p0 + chunk]
+        for s, (i, j) in enumerate(todo):  # the tile pass
+            for side, (rows, other) in enumerate(((j, i), (i, j))):
+                if tiles[rows] == 0:
+                    continue
+                for t in range(tiles[other]):
+                    sl = slice(t * TILE, (t + 1) * TILE)
+                    d1, d2, _ = two_nearest_plain(
+                        desc3[rows], desc3[other, sl], valid2[rows],
+                        valid2[other, sl])
+                    part[s, side, 0, t] = d1
+                    part[s, side, 1, t] = d2
+        for s, (i, j) in enumerate(todo):  # merge and count
+            for side, (rows, other) in enumerate(((j, i), (i, j))):
+                k = tiles[other]
+                d1, d2, _ = merge_top2_plain(
+                    part[s, side, 0, :k], part[s, side, 1, :k],
+                    torch.zeros((k, cap), dtype=torch.int64,
+                                device=desc3.device), valid2[rows])
+                out[p0 + s, side] = _ratio_ok(d1, d2, valid2[rows],
+                                              ratio).sum()
+    return out
+
+
 def pair_match_counts(desc3: torch.Tensor, valid2: torch.Tensor,
                       pairs: torch.Tensor, ratio: float = 0.5):
     """Ratio-test match counts of every listed image pair, both directions.
@@ -183,8 +246,15 @@ def pair_match_counts(desc3: torch.Tensor, valid2: torch.Tensor,
     desc3 [N, CAP, 128] float32, valid2 [N, CAP] bool, pairs [P, 2] int32
     rows (i, j). Returns [P, 2] int32: [:, 0] counts queries = image j
     against references = image i (the reference's getImgPair(i, j) size),
-    [:, 1] the reverse. Kernel B5 on CUDA tensors: one launch for all
-    pairs, no host synchronisation."""
+    [:, 1] the reverse. Kernel B5 on CUDA tensors: one distance pass per
+    pair for both directions, no host synchronisation, any number of pairs.
+
+    Scratch: the per-tile partials take CAP^2 / 4 bytes per pair; the call
+    holds at most ``PAIR_SCRATCH_BYTES`` (256 MiB) of them and walks the
+    pairs in chunks of ``pair_chunk`` (three device launches per chunk). The
+    budget covers every N at CAP <= 32,768 (45 pairs at CAP 9,728 take 5
+    chunks of at most 11); past that a chunk is one pair and takes its CAP^2 / 4
+    bytes."""
     if desc3.device.type == "cpu":
         return pair_match_counts_plain(desc3, valid2, pairs, ratio)
     _native.check_cuda("pair_match_counts.desc3", desc3, torch.float32,
@@ -195,14 +265,17 @@ def pair_match_counts(desc3: torch.Tensor, valid2: torch.Tensor,
     _native.check_cuda("pair_match_counts.pairs", pairs, torch.int32,
                        (None, 2))
     n_pairs = pairs.shape[0]
-    if n_pairs > 65535:
-        raise ValueError(f"pair_match_counts: {n_pairs} pairs exceed the "
-                         "grid's 65535")
-    out = torch.zeros((n_pairs, 2), dtype=torch.int32, device=desc3.device)
+    dev = desc3.device
+    out = torch.zeros((n_pairs, 2), dtype=torch.int32, device=dev)
     if n_pairs == 0 or cap == 0:
         return out
+    chunk = pair_chunk(cap, n_pairs, PAIR_SCRATCH_BYTES)
+    plan = torch.empty((n + chunk + 1,), dtype=torch.int32, device=dev)
+    part = torch.empty((chunk * 4 * -(-cap // TILE) * cap,),
+                       dtype=torch.float32, device=dev)
     _native.LAUNCHES["pair_match_counts"] += 1
     _native.launch("cvs_pair_match_counts", desc3.data_ptr(),
-                   valid2.data_ptr(), cap, pairs.data_ptr(), n_pairs,
-                   float(ratio), out.data_ptr())
+                   valid2.data_ptr(), n, cap, pairs.data_ptr(), n_pairs,
+                   float(ratio), chunk, plan.data_ptr(),
+                   plan[n:].data_ptr(), part.data_ptr(), out.data_ptr())
     return out

@@ -15,19 +15,27 @@ one NVIDIA GPU and ``nvcc``. Steps:
 2. one default-path stitch of this tree on the four scrambled 512x384
    crops of ``chip_smoke.py`` (phase 3), recording the arguments of every
    call of B2 (``sift_walks.orientation_hist``), B3
-   (``sift_walks.descriptors``) and B4 (``distance.two_nearest_bidir``);
+   (``sift_walks.descriptors``), B4 (``distance.two_nearest_bidir``) and
+   B5 (``distance.pair_match_counts``); and B5's arguments for ten 512x384
+   crops of one scene (45 pairs, ``pair_match_counts@n10``) and for four
+   1440x1080 crops (``pair_match_counts@1440x1080``);
 3. in turns parent, this tree, this tree, parent (a subprocess each, with
    that tree first on ``sys.path``): each tree's wrappers on the recorded
    calls, held against the plain versions on the card (B2 rtol 1e-5 with
    atol 1e-5 x max, B3 atol 2e-6, B4 d1 / d2 rtol 1e-5 and i1 where the
-   2-NN gap exceeds 1e-4 d1) and against a second run (equal bits); then,
-   without ``--check``, the time of all recorded calls of a kernel in a
-   row, mean of 10 passes after one warm-up: the device time of the
-   kernels alone from ``torch.profiler`` (``device_ms_*``: per panorama
-   for the walks, per edge for B4) and the time between CUDA events around
-   the calls, which adds the host's gaps between launches
-   (``ms_all_calls_events``); and five warm default-path stitches of the
-   recorded images after one cold one (``stitch_warm_*``, host clock).
+   2-NN gap exceeds 1e-4 d1, B5 exact counts, also against one B4 launch
+   per pair) and against a second run (equal bits); then, without
+   ``--check``, the time of all recorded calls of a kernel in a row, mean
+   of 10 passes after one warm-up: the device time of the kernels alone
+   from ``torch.profiler`` (``device_ms_*``: per panorama for the walks
+   and B5, per edge for B4) and the time between CUDA events around the
+   calls, which adds the host's gaps between launches
+   (``ms_all_calls_events``); B2's first call with no live keypoint (the
+   cost of its launch alone, ``device_ms_no_keypoints``); and five warm
+   default-path stitches of the recorded images after one cold one
+   (``stitch_warm_*``, host clock), with the live feature count of every
+   image and a hash of the panorama, which the last step compares between
+   the trees (``same_features``, ``same_panorama``).
 
 Prints one JSON object per step and writes them all to ``--out``.
 """
@@ -43,7 +51,8 @@ from pathlib import Path
 
 SITES = {"sift_orientation_hist": ("sift_walks", "orientation_hist"),
          "sift_descriptors": ("sift_walks", "descriptors"),
-         "l1_two_nearest_bidir": ("distance", "two_nearest_bidir")}
+         "l1_two_nearest_bidir": ("distance", "two_nearest_bidir"),
+         "pair_match_counts": ("distance", "pair_match_counts")}
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -55,13 +64,16 @@ _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 def kernel_name(mangled: str) -> str:
     """The ``*_kernel`` identifier inside a mangled name: the one that its
     decimal length prefix delimits exactly."""
+    found = [mangled]
     for m in re.finditer(r"\d+", mangled):
         for cut in range(len(m.group())):  # "cf21detect...": try 21 and 1
             n = int(m.group()[cut:])
             ident = mangled[m.end():m.end() + n]
             if ident.endswith("_kernel") and len(ident) == n:
-                return ident
-    return mangled
+                found.append(ident)
+    # a file hash in the name may start with digits that delimit a longer
+    # string ending in the identifier: the identifier itself is the shortest
+    return min(found, key=len)
 
 
 def ptxas_report(tree: Path) -> dict:
@@ -99,7 +111,8 @@ def ptxas_report(tree: Path) -> dict:
 
 def record_inputs(path: Path) -> dict:
     """One cold default-path stitch of this tree on chip_smoke's crops,
-    keeping the arguments of every B2, B3 and B4 call (as CPU tensors)."""
+    keeping the arguments of every B2, B3, B4 and B5 call (as CPU tensors),
+    and B5's arguments at ten crops and at 1440x1080."""
     import torch
 
     import chip_smoke
@@ -125,6 +138,12 @@ def record_inputs(path: Path) -> dict:
     finally:
         for name, (mod, attr) in SITES.items():
             setattr(mods[mod], attr, orig[name])
+    for label, crops in (
+            ("n10", chip_smoke.crops(512, 384, 224, 2, 0, n=10)),
+            ("1440x1080", chip_smoke.crops(1440, 1080, 630, 6, 1))):
+        calls[f"pair_match_counts@{label}"] = [(
+            *(a.cpu() for a in chip_smoke.pair_inputs(crops)),
+            DEFAULT_CONFIG.match.ratio_threshold)]
     counts = {name: len(c) for name, c in calls.items()}
     calls["images"] = [torch.from_numpy(im) for im in images]
     torch.save(calls, path)
@@ -149,7 +168,9 @@ kernels = {"sift_orientation_hist": ("orientation_hist_kernel",),
            "sift_descriptors": ("descriptors_kernel",),
            "l1_two_nearest_bidir": ("l1_two_nearest_kernel",
                                     "l1_bidir_tile_kernel",
-                                    "l1_bidir_merge_kernel")}
+                                    "l1_bidir_merge_kernel"),
+           "pair_match_counts": ("pair_counts_kernel", "pair_plan_kernel",
+                                 "pair_tile_kernel", "pair_count_kernel")}
 fns = {"sift_orientation_hist": (sift_walks.orientation_hist,
                                  sift_walks.orientation_hist_plain),
        "sift_descriptors": (sift_walks.descriptors,
@@ -157,14 +178,47 @@ fns = {"sift_orientation_hist": (sift_walks.orientation_hist,
        "l1_two_nearest_bidir": (
            distance.two_nearest_bidir,
            lambda q, r, qv, rv: (distance.two_nearest_plain(q, r, qv, rv),
-                                 distance.two_nearest_plain(r, q, rv, qv)))}
+                                 distance.two_nearest_plain(r, q, rv, qv))),
+       "pair_match_counts": (distance.pair_match_counts,
+                             distance.pair_match_counts_plain)}
 out = {"tree": tree, "gpu": torch.cuda.get_device_name(0)}
-for name, (kern, plain) in fns.items():
+
+
+def device_ms(fn, name, reps=10):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        t = (getattr(e, "self_device_time_total", 0)
+             or getattr(e, "self_cuda_time_total", 0))
+        if str(e.device_type).endswith("CUDA") and any(
+                k in e.key for k in kernels[name]):
+            us += t
+    return us / 1e3 / reps
+
+
+for key in calls:
+    name = key.split("@")[0]  # "pair_match_counts@n10": another input set
+    kern, plain = fns[name]
     err = 0.0
-    for c in calls[name]:
+    for c in calls[key]:
         a, b = kern(*c), kern(*c)
         p = plain(*c)
-        if name == "l1_two_nearest_bidir":
+        if name == "pair_match_counts":
+            assert torch.equal(a, b), "not deterministic"
+            # a query within rounding of the ratio may fall either way
+            err = max(err, float((a - p).abs().max()))
+            assert err <= 1, (a.tolist(), p.tolist())
+            d, v = c[0], c[1]
+            for k, (i, j) in enumerate(c[2].tolist()):
+                okq, _, okr, _ = distance.ratio_match_bidir(d[j], d[i], v[j],
+                                                            v[i], c[3])
+                assert [int(okq.sum()), int(okr.sum())] == a[k].tolist()
+        elif name == "l1_two_nearest_bidir":
             for (k1, k2, ki), (b1, b2, bi), (p1, p2, pi), ok in zip(
                     a, b, p, (c[2], c[3])):
                 assert all(torch.equal(x, y) for x, y in
@@ -184,10 +238,15 @@ for name, (kern, plain) in fns.items():
                     a[0], p[0], rtol=1e-5,
                     atol=1e-5 * float(p[0].abs().max()))
             err = max(err, float((a[0] - p[0]).abs().max()))
-    rec = {"calls": len(calls[name]), "max_abs_err": err}
+    rec = {"calls": len(calls[key]), "max_abs_err": err}
+    if name == "pair_match_counts":
+        rec["live"] = calls[key][0][1].sum(dim=1).tolist()
+        rec["slots"] = calls[key][0][0].shape[1]
+        rec["counts"] = kern(*calls[key][0]).tolist()
+
     if not check:
         def all_calls():
-            for c in calls[name]:
+            for c in calls[key]:
                 kern(*c)
         all_calls()
         torch.cuda.synchronize()
@@ -199,34 +258,31 @@ for name, (kern, plain) in fns.items():
         end.record()
         end.synchronize()
         rec["ms_all_calls_events"] = start.elapsed_time(end) / 10
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                all_calls()
-            torch.cuda.synchronize()
-        us = 0.0
-        for e in prof.key_averages():
-            t = (getattr(e, "self_device_time_total", 0)
-                 or getattr(e, "self_cuda_time_total", 0))
-            if str(e.device_type).endswith("CUDA") and any(
-                    k in e.key for k in kernels[name]):
-                us += t
-        rec["device_ms_all_calls"] = us / 1e3 / 10
+        rec["device_ms_all_calls"] = device_ms(all_calls, name)
         rec["device_ms_per_call"] = rec["device_ms_all_calls"] / len(
-            calls[name])
-    out[name] = rec
+            calls[key])
+        if name == "sift_orientation_hist":
+            c = list(calls[key][0])
+            rec["device_ms_first_call"] = device_ms(lambda: kern(*c), name)
+            c[5] = torch.zeros_like(c[5])  # n_valid = 0: the launch alone
+            rec["device_ms_no_keypoints"] = device_ms(lambda: kern(*c), name)
+    out[key] = rec
 if not check:  # the whole default path, warm, on the recorded images
     import statistics, time
     from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
     from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
+    import hashlib
     st = Stitcher(DEFAULT_CONFIG, device="cuda")
-    st.stitch(images)
+    pano = st.stitch(images)
+    out["feature_counts"] = st._matching_feats().valid.sum(dim=1).tolist()
+    out["panorama"] = [list(pano.shape),
+                       hashlib.sha256(pano.tobytes()).hexdigest()[:16]]
     walls = []
     for _ in range(5):
         t = time.perf_counter()
         st.stitch(images)
         walls.append(time.perf_counter() - t)
+    out["ordering_stage_s"] = st.stage_times["ordering"]
     out["stitch_warm_s"] = walls
     out["stitch_warm_median_s"] = statistics.median(walls)
 print("CHILD " + json.dumps(out), flush=True)
@@ -279,6 +335,13 @@ def main(argv=None) -> int:
             results.append({"run": label, **run_tree(tree, inputs,
                                                      args.check)})
             print(json.dumps(results[-1]), flush=True)
+    if not args.check:
+        runs = {r["run"]: r for r in results if "run" in r}
+        results.append({"same_features": runs["parent"]["feature_counts"]
+                        == runs["this"]["feature_counts"],
+                        "same_panorama": runs["parent"]["panorama"]
+                        == runs["this"]["panorama"]})
+        print(json.dumps(results[-1]), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))

@@ -20,7 +20,7 @@ from computervisionimagestich2_tpu_torch.models import registration as treg
 from computervisionimagestich2_tpu_torch.models import stitcher as tst
 from computervisionimagestich2_tpu_torch.ops import distance as tdist
 from test_integration import make_scene
-from test_torch_kernels import _pair_inputs
+from test_torch_kernels import PAIR_CASES, _pair_case, _pair_inputs
 
 T = torch.as_tensor
 CFG = dataclasses.replace(
@@ -52,6 +52,50 @@ def test_pair_match_counts_plain_matches_pallas_and_scan(asymmetric):
     assert got[0].min() > 30 and got[5].min() > 30
     if asymmetric:  # pair (0, 1): queries = image 1 gain the copies
         assert got[0].tolist() == [60, 40]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """A thread pool per pytest worker oversubscribes the shared cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_pair_match_counts_tiled_plan_equals_plain(case):
+    """Kernel B5's plan in plain PyTorch (per-tile (d1, d2) partials of
+    the live 64 x 64 tiles in a chunk's scratch, merge, ratio count) on a
+    scratch budget of two pairs, so 3 chunks (5 at 10 pairs): exactly the
+    counts of the untiled per-pair loop, on the reference inputs, the
+    asymmetric variant, an image with no valid row, holed masks,
+    duplicates across a tile edge and five images."""
+    desc, valid, pairs = (T(a) for a in _pair_case(case))
+    cap = desc.shape[1]
+    budget = 2 * 16 * -(-cap // tdist.TILE) * cap
+    assert tdist.pair_chunk(cap, len(pairs), budget) == 2
+    want = tdist.pair_match_counts_plain(desc, valid, pairs)
+    got = tdist.pair_match_counts_tiled_plain(desc, valid, pairs, 0.5, budget)
+    assert torch.equal(got, want), (got, want)
+    one_chunk = tdist.pair_match_counts_tiled_plain(desc, valid, pairs)
+    assert torch.equal(one_chunk, want)
+    assert int(want.max()) > 0
+    if case == "empty":  # every pair with image 1
+        assert (want[[0, 3, 4]] == 0).all()
+    if case == "dups":  # the query tied at d1 = d2 = 0 is no match
+        assert want[0, 0] == tdist.pair_match_counts_plain(
+            *(T(a) for a in _pair_case("reference")))[0, 0] - 1
+
+
+def test_pair_chunk_budget():
+    """The default budget holds 45 pairs at 9,728 slots in 5 chunks of at
+    most 11; one pair past the budget is still a chunk; a chunk never exceeds
+    the pairs."""
+    assert tdist.pair_chunk(9728, 45, tdist.PAIR_SCRATCH_BYTES) == 11
+    assert tdist.pair_chunk(2048, 6, tdist.PAIR_SCRATCH_BYTES) == 6
+    assert tdist.pair_chunk(40000, 3, tdist.PAIR_SCRATCH_BYTES) == 1
+    assert tdist.pair_chunk(0, 3, tdist.PAIR_SCRATCH_BYTES) == 3
 
 
 @pytest.fixture(scope="module")

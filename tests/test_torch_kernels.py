@@ -84,6 +84,90 @@ def _pair_inputs(asymmetric=False):
     return desc, valid, pairs
 
 
+PAIR_CASES = ["reference", "asymmetric", "empty", "holes", "dups", "n5"]
+
+
+def _pair_case(case):
+    """Kernel B5's cases (desc [N, CAP, 128], valid [N, CAP], all i<j
+    pairs): the two standing ones; an image with no valid row; masks with
+    holes inside the live prefix and across the 64-row tile edge;
+    descriptors duplicated across a tile edge (exact d1 = d2 ties, which
+    fail the ratio test, and d1 = 0 matches); five images of 192 slots with
+    live counts on and beside tile edges (10 pairs); ten images (45
+    pairs)."""
+    if case in ("reference", "asymmetric"):
+        return _pair_inputs(case == "asymmetric")
+    if case in ("n5", "n10"):
+        n, cap = (5, 192) if case == "n5" else (10, 256)
+        rng = np.random.default_rng(31)
+        desc = rng.random(size=(n, cap, 128)).astype(np.float32)
+        lives = [(192, 100, 150, 64, 65, 129, 1, 180, 30, 128)[m]
+                 for m in range(n)]
+        for m in range(1, n):  # each image shares 20 + m rows with the last
+            k = min(20 + m, lives[m], lives[m - 1])
+            desc[m, :k] = (desc[m - 1, 5:5 + k]
+                           + rng.normal(size=(k, 128)) * 1e-3)
+        valid = np.stack([np.arange(cap) < nv for nv in lives])
+    else:
+        desc, valid, _ = _pair_inputs()
+        valid = valid.copy()
+        if case == "empty":
+            valid[1] = False
+        elif case == "holes":
+            valid[0, 20:35] = False    # matched references of image 1
+            valid[2, 60:70] = False    # across the first tile edge
+            valid[1, [0, 3, 63, 64]] = False
+            valid[3, 10:20] = False
+        elif case == "dups":
+            desc[0, 64] = desc[0, 63]    # two equal references: d1 = d2
+            desc[1, 5] = desc[0, 63]     # ... for this query, both 0
+            desc[2, 128] = desc[2, 127]
+            desc[3, 70] = desc[2, 127]
+            desc[3, 71] = desc[2, 191]   # one exact match across tiles
+        else:
+            raise KeyError(case)
+    n = desc.shape[0]
+    pairs = np.asarray([(i, j) for i in range(n) for j in range(i + 1, n)],
+                       np.int32)
+    return desc, valid, pairs
+
+
+WALK_EDGE_RADIUS = 17
+
+
+def _walk_edge_inputs(case, h=72, w=64):
+    """Kernel B2's edge cases at the level radius 17. ``border``: keypoints
+    on and beside every image border and corner (windows clipped by the
+    image, one rounding off it). ``radius``: window radii wr = floor(4.5
+    sigma) at the level's static radius, one below it, above it (the walk
+    is capped at the radius) and at the minimum of 1."""
+    rng = np.random.default_rng(17)
+    mod = rng.random((h, w), dtype=np.float32)
+    ang = (rng.random((h, w)) * 2 * np.pi).astype(np.float32)
+    if case == "border":
+        xs = [0.0, 0.4, w - 1.0, w - 1.4, w - 0.6, w - 0.4, 3.3, w / 2, -0.4,
+              -0.6]
+        ys = [0.0, 0.3, h - 1.0, h - 1.3, h - 0.6, h - 0.4, 2.7, h / 2, -0.4,
+              -0.6]
+        x, y = (np.array(v, np.float32).ravel()
+                for v in np.meshgrid(xs, ys))
+        sig = (1.3 + rng.random(x.size) * 2.4).astype(np.float32)
+    elif case == "radius":
+        sig = np.array([3.78, 3.9, 3.999, 3.7, 4.0, 4.5, 7.0, 0.2, 0.23, 1.0],
+                       np.float32)
+        x = np.array([30.2, 20.0, 40.7, 8.1, 31.5, 25.0, 33.3, 10.0, 50.5,
+                      0.2], np.float32)
+        y = np.array([35.1, 22.5, 30.0, 60.9, 36.5, 7.0, 40.4, 10.0, 5.5,
+                      70.8], np.float32)
+    else:
+        raise KeyError(case)
+    n = x.size
+    pad = -n % 8 + 8  # dead slots after the live prefix
+    x, y, sig = (np.concatenate([v, np.zeros(pad, np.float32)])
+                 for v in (x, y, sig))
+    return mod, ang, x, y, sig, np.array([n], np.int32)
+
+
 def _masked_2nn_inputs():
     """tests/test_pallas_distance.py:13-26 (a hole in the reference mask
     inside the live prefix), plus invalid queries inside the query
@@ -209,22 +293,103 @@ def test_kernel_b1_matches_plain(cuda_device, i):
         assert int(nc) == 298 and int(vc.sum()) == 128
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("asymmetric", [False, True])
-def test_kernel_b5_matches_plain_and_b4(cuda_device, asymmetric):
-    """B5 counts exact against the plain per-pair loop, and equal to the
-    ratio counts of one B4 launch per pair on the card (the same
-    ascending L1 sum, so the same bits)."""
-    desc, valid, pairs = _pair_inputs(asymmetric)
+def _assert_b5_equals_plain_and_b4(desc, valid, pairs, cuda_device):
     plain = distance.pair_match_counts(T(desc), T(valid), T(pairs))
     d, v, p = (T(a).to(cuda_device) for a in (desc, valid, pairs))
     got = distance.pair_match_counts(d, v, p)
+    again = distance.pair_match_counts(d, v, p)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), plain), (got, plain)
-    assert int(plain[:, 0].max()) > 0 and int(plain[:, 1].max()) > 0
+    assert torch.equal(got, again), "B5 is not deterministic"
     for k, (i, j) in enumerate(pairs.tolist()):
         okq, _, okr, _ = distance.ratio_match_bidir(d[j], d[i], v[j], v[i])
         assert [int(okq.sum()), int(okr.sum())] == got[k].tolist()
+    return plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_kernel_b5_matches_plain_and_b4(cuda_device, asymmetric):
+    """B5 counts exact against the plain per-pair loop, equal to the
+    ratio counts of one B4 launch per pair on the card (the same
+    ascending L1 sum, so the same bits), and equal in two runs."""
+    desc, valid, pairs = _pair_inputs(asymmetric)
+    plain = _assert_b5_equals_plain_and_b4(desc, valid, pairs, cuda_device)
+    assert int(plain[:, 0].max()) > 0 and int(plain[:, 1].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "holes", "dups", "n5", "n10"])
+def test_kernel_b5_cases_match_plain_and_b4(cuda_device, case):
+    """B5 on an image with no valid row, holed masks, duplicates across a
+    tile edge, 10 and 45 pairs: exact against plain and against B4."""
+    desc, valid, pairs = _pair_case(case)
+    plain = _assert_b5_equals_plain_and_b4(desc, valid, pairs, cuda_device)
+    assert int(plain.max()) > 0
+    if case == "empty":
+        assert (plain[[0, 3, 4]] == 0).all()  # the pairs with image 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["reference", "n10"])
+def test_kernel_b5_chunks_within_scratch_budget(cuda_device, case,
+                                                monkeypatch):
+    """A scratch budget of two pairs' partials: B5 walks the pairs in
+    chunks of two (the last of one at 45 pairs) and gives the same
+    counts, with one launch counted for the whole call."""
+    desc, valid, pairs = _pair_case(case)
+    cap = desc.shape[1]
+    budget = 2 * 16 * -(-cap // distance.TILE) * cap
+    assert distance.pair_chunk(cap, len(pairs), budget) == 2
+    d, v, p = (T(a).to(cuda_device) for a in (desc, valid, pairs))
+    want = distance.pair_match_counts(d, v, p)
+    monkeypatch.setattr(distance, "PAIR_SCRATCH_BYTES", budget)
+    _native.reset_launch_counts()
+    got = distance.pair_match_counts(d, v, p)
+    torch.cuda.synchronize()
+    assert _native.launch_counts()["pair_match_counts"] == 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(),
+                       distance.pair_match_counts(T(desc), T(valid), T(pairs)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["border", "radius"])
+def test_kernel_b2_edge_cases_match_plain(cuda_device, case):
+    """B2 on keypoints at the image border and with the window radius at,
+    below and above the level's static radius: rtol 1e-5 (atol 1e-5 x
+    max) against the plain version, equal ``ok``, zero rows past the live
+    count."""
+    from computervisionimagestich2_tpu_torch.ops import sift_walks
+
+    args = [T(a) for a in _walk_edge_inputs(case)]
+    hc, okc = sift_walks.orientation_hist(*args, WALK_EDGE_RADIUS)
+    hg, okg = sift_walks.orientation_hist(
+        *(a.to(cuda_device) for a in args), WALK_EDGE_RADIUS)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(hc.max()))
+    assert torch.equal(okg.cpu(), okc)
+    n = int(args[5][0])
+    assert (hg[n:] == 0).all() and float(hg[:n].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [0, 1, 48])
+def test_kernel_b2_live_counts(cuda_device, nv):
+    """B2 with no live keypoint, one, and the full capacity."""
+    from computervisionimagestich2_tpu_torch.ops import sift_walks
+
+    mod, ang, x, y, sig, _, _ = (T(a) for a in _walk_inputs())
+    n_valid = T(np.array([nv], np.int32))
+    hc, okc = sift_walks.orientation_hist(mod, ang, x, y, sig, n_valid, 17)
+    hg, okg = sift_walks.orientation_hist(
+        *(a.to(cuda_device) for a in (mod, ang, x, y, sig, n_valid)), 17)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(hc.max()))
+    assert torch.equal(okg.cpu(), okc)
+    assert (hg[nv:] == 0).all()
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ from computervisionimagestich2_tpu.ops import pallas_sift as ps
 from computervisionimagestich2_tpu.ops import sift_kernels as jsk
 from computervisionimagestich2_tpu_torch.ops import sift_kernels as tsk
 from computervisionimagestich2_tpu_torch.ops import sift_walks
+from test_torch_kernels import WALK_EDGE_RADIUS, _walk_edge_inputs
 
 T = torch.as_tensor
 
@@ -56,6 +57,35 @@ def test_orientation_hist_plain_matches_pallas(walk_scene):
     np.testing.assert_array_equal(tav.numpy(), np.asarray(jav))
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=1e-5)
     assert tav.any()
+
+
+@pytest.mark.parametrize("case", ["border", "radius"])
+def test_orientation_hist_plain_edge_cases_match_pallas(case):
+    """B2's plain version vs orientation_hist_pallas(interpret=True) on
+    keypoints at the image border, and with the window radius at, below
+    and above the level's static radius (the walk is capped there) and at
+    its minimum of 1: raw histograms rtol 1e-5 (atol 1e-5 x max), equal
+    ``ok``, zero rows past the live count."""
+    mod, ang, x, y, sig, nv = _walk_edge_inputs(case)
+    h, w = mod.shape
+    r = WALK_EDGE_RADIUS
+    jh, jok = ps.orientation_hist_pallas(
+        ps.pad_for_patches(jnp.asarray(mod), r),
+        ps.pad_for_patches(jnp.asarray(ang), r), jnp.asarray(x),
+        jnp.asarray(y), jnp.asarray(sig), jnp.asarray(nv), w, h, r, 36,
+        interpret=True)
+    th, tok = sift_walks.orientation_hist(T(mod), T(ang), T(x), T(y),
+                                          T(sig), T(nv), r)
+    jh = np.asarray(jh)
+    np.testing.assert_allclose(th.numpy(), jh, rtol=1e-5,
+                               atol=1e-5 * jh.max())
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    n = int(nv[0])
+    live = tok.numpy()[:n]
+    assert (th.numpy()[n:] == 0).all() and (th.numpy()[:n][~live] == 0).all()
+    assert (th.numpy()[:n][live].sum(axis=1) > 0).all()
+    if case == "border":
+        assert 0 < live.sum() < n  # some keypoints round off the image
 
 
 def test_descriptors_plain_matches_pallas_and_xla(walk_scene):
