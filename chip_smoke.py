@@ -20,13 +20,15 @@ phase with its result and seconds:
    on the card, with the time of each, of PyTorch's own call for the same
    function where one exists (``library_ms``, timed here and used nowhere
    in the port) and of the least time the card could take (the bound,
-   from these inputs: see ``bound``). B2, B3, B4 and B5 must give the
+   from these inputs: see ``bound``). B1 is held exactly on every octave
+   of the call (one launch detects an image's four); B1-B5 must give the
    same bits twice; B4 the bits of B7 run each way; B5 the ratio counts of
-   B4 on every pair; B2 is also timed with no live keypoint (what its
-   launch alone costs);
+   B4 on every pair; B1, B2 and B6 are also timed on a call with nothing
+   to do (what a launch alone costs), and B6 on the panorama's last and
+   largest canvas;
 4. warm default-path stitches of the same images: each kernel's launch
-   count in one run (all six of the path must have launched, B4 once per
-   edge), the median time of three runs with the stage times, agreement
+   count in one run (all six of the path must have launched, B1 once per
+   image, B4 once per edge), the median time of three runs with the stage times, agreement
    with the CPU run of the port (plain versions), and one
    ``torch.profiler`` pass of a warm run: device time per kernel and per
    panorama, all launches, the device's busy and idle share;
@@ -39,7 +41,9 @@ phase with its result and seconds:
    version on a reference mask with a hole inside the live prefix;
 7. the default path on four scrambled 1440x1080 images (the north-star
    size): canvas, discovered edges and start, SIFT and match telemetry,
-   cold and warm times, stage times and peak device memory; then kernel
+   cold and warm times, stage times and peak device memory; B1 exactly
+   against plain on that size's four octave shapes and B6 on its 1489 x
+   2948 canvas beside its bound; then kernel
    B5 alone on the features of ten 512x384 frames (45 pairs), of four
    1440x1080 frames, and of ten at the extractor's full capacity (9,728
    slots, so the pairs go in several chunks; not held against plain, which
@@ -73,9 +77,7 @@ path runs and read just after; each path must launch each of its kernels
 (B7, the one-direction 2-NN, belongs to the matcher API of phase 6 only).
 
 A redesigned kernel is timed beside its earlier design, from an earlier
-commit, by ``computervisionimagestich2_tpu_torch/tools/kernel_ab.py``; B4's
-earlier design (B7 launched each way) is still in the library and is timed
-here.
+commit, by ``computervisionimagestich2_tpu_torch/tools/kernel_ab.py``.
 
 The line before the last is the per-kernel JSON summary (B1-B7), the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -116,15 +118,20 @@ KERNELS = {
 }
 # the device kernels each wrapper launches (substrings of their names)
 DEVICE_KERNELS = {
-    "detect_compact": ("detect_rows_kernel", "detect_flatten_kernel"),
+    "detect_compact": ("detect_octaves_kernel",),
     "sift_orientation_hist": ("orientation_hist_kernel",),
     "sift_descriptors": ("descriptors_kernel",),
     "l1_two_nearest_bidir": ("l1_bidir_tile_kernel", "l1_bidir_merge_kernel"),
     "pair_match_counts": ("pair_plan_kernel", "pair_tile_kernel",
                           "pair_count_kernel"),
     "warp_image": ("warp_image_kernel",),
-    "l1_two_nearest": ("l1_two_nearest_kernel",),
+    "l1_two_nearest": ("l1_one_way_tile_kernel", "l1_one_way_merge_kernel"),
 }
+# device work a launcher starts beside its kernels, by profiler key: B1's
+# cudaMemsetAsync of the scan's status words. Counted where a wrapper is
+# timed alone (``device_ms``); in the profile of a whole stitch other code's
+# memsets carry the same key, so ``profile_run`` books the kernels only
+BESIDE_KERNELS = {"detect_compact": ("Memset",)}
 OFF_MAIN_PATH = {"l1_two_nearest"}  # B7: the matcher API (phase 6) only
 CHAIN_OFF_PATH = OFF_MAIN_PATH | {"detect_compact", "pair_match_counts"}
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet):
@@ -239,14 +246,17 @@ def _device_events(prof) -> list:
             if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
 
 
-def device_ms(fn, name: str, reps: int = 10) -> float | None:
-    """Mean device time per call of ``fn`` spent in the device kernels of
-    wrapper ``name`` (``DEVICE_KERNELS``), from ``torch.profiler`` over
-    ``reps`` calls after one warm-up: the kernels alone, without the host's
-    gaps between launches. None if the profiler sees no device time."""
+def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
+    """Mean device time per call of ``fn`` spent in the device work of
+    wrapper ``name`` (``DEVICE_KERNELS`` and ``BESIDE_KERNELS``, or the
+    profiler keys ``keys``), from ``torch.profiler`` over ``reps`` calls
+    after one warm-up: the device work alone, without the host's gaps
+    between launches. None if the profiler sees no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if keys is None:
+        keys = DEVICE_KERNELS[name] + BESIDE_KERNELS.get(name, ())
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -255,7 +265,7 @@ def device_ms(fn, name: str, reps: int = 10) -> float | None:
             fn()
         torch.cuda.synchronize()
     us = sum(_dev_us(e) for e in _device_events(prof)
-             if any(k in e.key for k in DEVICE_KERNELS[name]))
+             if any(k in e.key for k in keys))
     return us / 1e3 / reps if us else None
 
 
@@ -272,20 +282,23 @@ def kernel_ms(fn, name: str) -> dict:
 class Recorder:
     """Wraps each kernel wrapper at the module attribute the main path
     calls it through, and keeps the arguments of every call (``calls``)
-    and of the first (``args``)."""
+    and of the first (``args``). ``names``: the wrappers to record (all
+    by default)."""
 
-    def __init__(self):
+    def __init__(self, names=None):
         from computervisionimagestich2_tpu_torch.models import compose
         from computervisionimagestich2_tpu_torch.ops import (detect, distance,
                                                              sift_walks)
 
         self.sites = {
-            "detect_compact": (detect, "detect_compact"),
+            "detect_compact": (detect, "detect_compact_octaves"),
             "sift_orientation_hist": (sift_walks, "orientation_hist"),
             "sift_descriptors": (sift_walks, "descriptors"),
             "l1_two_nearest_bidir": (distance, "two_nearest_bidir"),
             "pair_match_counts": (distance, "pair_match_counts"),
             "warp_image": (compose, "warp_image")}
+        if names is not None:
+            self.sites = {n: self.sites[n] for n in names}
         self.args: dict[str, tuple] = {}
         self.calls: dict[str, list] = {name: [] for name in self.sites}
         self._orig = {}
@@ -501,12 +514,13 @@ def kernel_bound(name: str, a: tuple) -> dict:
     """``bound`` of one call of kernel ``name`` with arguments ``a``,
     counted from what these inputs need: live rows and contributing
     window pixels, not capacities."""
-    if name == "detect_compact":  # dog [s_out + 2, h, w], gate, capacity
-        dog, cap = a[0], a[2]
-        s_out, h, w = dog.shape[0] - 2, dog.shape[1], dog.shape[2]
+    if name == "detect_compact":  # dogs [s_out + 2, h, w], gate, capacities
+        dogs, caps = a[0], a[2]
         # gate + 26 neighbour compares per interior voxel
-        return bound(_nbytes(dog) + cap * (3 * 8 + 1) + 4,
-                     27 * s_out * (h - 2) * (w - 2))
+        ops = sum(27 * (d.shape[0] - 2) * max(d.shape[1] - 2, 0)
+                  * max(d.shape[2] - 2, 0) for d in dogs)
+        return bound(_nbytes(*dogs) + sum(caps) * (3 * 8 + 1) + 4 * len(dogs),
+                     ops)
     if name == "sift_orientation_hist":
         n = a[2].shape[0]
         return bound(_nbytes(a[0], a[1]) + 3 * 4 * n + 4 + n * 36 * 4,
@@ -558,13 +572,57 @@ def l1_library(q, r, both: bool):
     return (fwd, torch.topk(d, 2, dim=0, largest=False)) if both else fwd
 
 
+def check_b1(a: tuple) -> dict:
+    """Kernel B1 on the arguments ``a`` of one call (the DoG stacks of an
+    image's octaves, threshold, capacities): every octave's coords, valid
+    and n_total exactly the plain version's, and the same bits in a second
+    run. Returns the largest difference of a coordinate, the octaves'
+    shapes, capacities, kept and uncapped counts."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import detect
+
+    dogs, tp, caps = a
+    got = detect.detect_compact_octaves(*a)
+    again = detect.detect_compact_octaves(*a)
+    kept, totals, err = [], [], 0
+    for dog, cap, (ck, vk, nk), (ca, va, na) in zip(dogs, caps, got, again):
+        cp, vp, np_ = detect.detect_compact_plain(dog, tp, cap)
+        err = max(err, int((ck - cp).abs().max()))
+        assert torch.equal(ck, cp) and torch.equal(vk, vp), \
+            ("B1 must be exact", tuple(dog.shape))
+        assert int(nk) == int(np_), (int(nk), int(np_))
+        assert torch.equal(ck, ca) and torch.equal(vk, va) \
+            and int(nk) == int(na), "B1 is not deterministic"
+        kept.append(int(vk.sum()))
+        totals.append(int(nk))
+    return {"max_abs_err": err, "dogs": [list(d.shape) for d in dogs],
+            "capacities": list(caps), "candidates": kept, "n_total": totals}
+
+
+def b6_at(a: tuple) -> dict:
+    """Kernel B6 on the arguments of one call: exact against plain, its
+    device time beside its bound."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import warp
+
+    assert torch.equal(warp.warp_image(*a), warp.warp_image_plain(*a)), \
+        "B6 must be exact"
+    row = {"src": list(a[0].shape), "canvas": list(a[4]),
+           **kernel_ms(lambda: warp.warp_image(*a), "warp_image"),
+           **kernel_bound("warp_image", a)}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
 def check_kernels(rec: Recorder) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
     inputs of its first call, both on the card. Tolerances: B1 exact
-    (coords, valid, n_total); B2 raw histograms rtol 1e-5 (atol 1e-5 x
+    (coords, valid, n_total of every octave of the call); B2 raw histograms rtol 1e-5 (atol 1e-5 x
     max), B3 atol 2e-6, B4 d1/d2 rtol 1e-5 with i1 equal where the 2-NN gap
     exceeds 1e-4 d1, in both directions; B5 exact counts, short of the
-    queries within 1e-5 of the ratio; B6 exact. B2, B3, B4 and B5 give the
+    queries within 1e-5 of the ratio; B6 exact. B1-B5 give the
     same bits twice; B4 the bits of B7 each way; B5 the ratio counts of one B4
     launch per pair, exactly. Each row carries the bound of the first call
     and the bounds of the panorama's calls summed."""
@@ -591,15 +649,27 @@ def check_kernels(rec: Recorder) -> list[dict]:
 
     no_library = "no PyTorch call computes it"
     a = args["detect_compact"]
-    ck, vk, nk = detect.detect_compact(*a)
-    cp, vp, np_ = detect.detect_compact_plain(*a)
-    assert torch.equal(ck, cp) and torch.equal(vk, vp), "B1 must be exact"
-    assert int(nk) == int(np_), (int(nk), int(np_))
-    add("detect_compact", (ck - cp).abs().max(),
-        lambda: detect.detect_compact(*a),
-        lambda: detect.detect_compact_plain(*a), library_note=no_library,
-        dog=list(a[0].shape), capacity=a[2], candidates=int(vk.sum()),
-        n_total=int(nk))
+    assert len(a[0]) == 4, "the four octaves of an image in one call"
+    tiny = [torch.zeros((3, 1, 8), device=a[0][0].device)] * len(a[0])
+    b1 = check_b1(a)
+    memset_ms = device_ms(lambda: detect.detect_compact_octaves(*a),
+                          "detect_compact",
+                          keys=BESIDE_KERNELS["detect_compact"])
+    assert memset_ms, "B1's memset of the status words was not profiled"
+    add("detect_compact", b1.pop("max_abs_err"),
+        lambda: detect.detect_compact_octaves(*a),
+        lambda: [detect.detect_compact_plain(d, a[1], c)
+                 for d, c in zip(a[0], a[2])], library_note=no_library,
+        **b1, memset_ms=memset_ms,
+        launch_alone_ms=device_ms(
+            lambda: detect.detect_compact_octaves(tiny, a[1], [1] * len(tiny)),
+            "detect_compact"),
+        launch_alone="the same number of stacks, one row each, capacity 1: "
+                     "a block per stack that finds nothing",
+        beside_the_kernel="ms, at_1440x1080 and launch_alone_ms hold the "
+                          "launcher's memset of the scan's status words "
+                          "(memset_ms); the profiles of whole stitches "
+                          "hold the kernel only")
 
     a = args["sift_orientation_hist"]
     hk, okk = sift_walks.orientation_hist(*a)
@@ -670,11 +740,6 @@ def check_kernels(rec: Recorder) -> list[dict]:
         plain_bidir, library=lambda: l1_library(lib_q, lib_r, both=True),
         library_note="three calls: torch.cdist(p=1), then topk(2, "
                      "largest=False) along each side",
-        one_direction_design_ms=device_ms(
-            lambda: (distance.two_nearest(q, r, qv, rv),
-                     distance.two_nearest(r, q, rv, qv)), "l1_two_nearest"),
-        one_direction_design="the earlier B4: two launches of the "
-                             "one-direction loop (B7), one each way",
         queries=int(qv.sum()), references=int(rv.sum()),
         i1_equal_frac=i1_equal)
 
@@ -692,9 +757,14 @@ def check_kernels(rec: Recorder) -> list[dict]:
     wk = warp.warp_image(*a)
     wp = warp.warp_image_plain(*a)
     assert torch.equal(wk, wp), "B6 must be exact"
+    last = rec.calls["warp_image"][-1]  # the panorama's full canvas
     add("warp_image", (wk - wp).abs().max(),
         lambda: warp.warp_image(*a), lambda: warp.warp_image_plain(*a),
-        library_note=no_library, canvas=list(a[4]))
+        library_note=no_library, canvas=list(a[4]),
+        at_last_canvas=b6_at(last),
+        launch_alone_ms=device_ms(
+            lambda: warp.warp_image(*last[:4], (1, 1)), "warp_image"),
+        launch_alone="the last call's arguments with a 1 x 1 canvas")
     return rows
 
 
@@ -1078,7 +1148,7 @@ def main() -> int:
                                                      SLICE_CONFIG)
     from computervisionimagestich2_tpu_torch.core.types import Features
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
-    from computervisionimagestich2_tpu_torch.ops import _native
+    from computervisionimagestich2_tpu_torch.ops import _native, detect
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1116,6 +1186,7 @@ def main() -> int:
     stages = dict(st.stage_times)
     warm = [t1] + [run(st, images)[1] for _ in range(2)]
     check_launches(launches, b4=len(edges))
+    assert launches["detect_compact"] == len(images), launches
     assert stages["ordering"] > 0, stages
     t_cpu = time.perf_counter()
     out_cpu = stm.Stitcher(DEFAULT_CONFIG, device="cpu").stitch(images)
@@ -1182,14 +1253,30 @@ def main() -> int:
     try:
         st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
         seen = record_ordering(st)
-        out_big, cold_s = run(st, images)
+        with Recorder(("detect_compact", "warp_image")) as rec:
+            out_big, cold_s = run(st, images)
     finally:
         stm.sift_extract_stats, stm.plan_edges = sift_fn, plan_fn
+    b1 = next(k for k in kernels if k["name"] == "detect_compact")
+    a = rec.args["detect_compact"]
+    b1["at_1440x1080"] = {
+        **check_b1(a), **kernel_bound("detect_compact", a),
+        **kernel_ms(lambda: detect.detect_compact_octaves(*a),
+                    "detect_compact")}
+    b1["at_1440x1080"]["share_of_bound"] = (
+        b1["at_1440x1080"]["bound_ms"] / b1["at_1440x1080"]["ms"])
+    b6 = next(k for k in kernels if k["name"] == "warp_image")
+    b6["at_1440x1080_last_canvas"] = b6_at(rec.calls["warp_image"][-1])
+    assert b6["at_1440x1080_last_canvas"]["canvas"] == list(
+        out_big.shape[:2]), b6["at_1440x1080_last_canvas"]
+    del rec, a  # the recorded stacks must not count in the peak below
+    torch.cuda.reset_peak_memory_stats()
     edges = check_chain(seen)
     stages_big = dict(st.stage_times)
     _native.reset_launch_counts()
     warm = [run(st, images)[1] for _ in range(3)]
     launches_big = {k: c // 3 for k, c in _native.launch_counts().items()}
+    assert launches_big["detect_compact"] == len(images), launches_big
     assert out_big.dtype == np.uint8 and out_big.shape[2] == 3
     assert 2000 <= out_big.shape[1] <= 4000, out_big.shape
     assert out_big.shape[0] <= 2000, out_big.shape
@@ -1200,7 +1287,9 @@ def main() -> int:
          warm_median_s=statistics.median(warm), warm_s=warm,
          stage_s_cold=stages_big, stage_s_warm=dict(st.stage_times),
          launches_per_run=launches_big, **telemetry,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         detect_compact=b1["at_1440x1080"],
+         warp_image=b6["at_1440x1080_last_canvas"])
 
     # -- 7b. B5 at ten frames and at the north-star size
     t = time.perf_counter()

@@ -218,7 +218,7 @@ class StitchConfig:
     ordering: str = "graph"
     # Dense-graph BFS: "skip" (default) stitches each image exactly once
     # (a spanning tree); "faithful" reproduces the reference's unguarded
-    # BFS, which re-stitches images on dense graphs (not ported, A13).
+    # BFS, which re-stitches images on dense graphs.
     graph_revisit: str = "skip"
     # Per-edge Reinhard color transfer of the incoming image toward its
     # stitch partner, the call the reference has commented out in its

@@ -10,15 +10,20 @@
 extern "C" {
 #endif
 
-// B1: strict 26-neighbour extrema of dog [s_out + 2, h, w] at |v| >= gate,
-// as scan-order (s, y, x) rows of coords [capacity, 3] with valid
-// [capacity]; each image row keeps its first 128 hits. n_total: [1], the
-// uncapped hit count. Scratch: row_lists [s_out * h, 128], row_counts
-// [s_out * h]. Two launches.
-cudaError_t cvs_detect_compact(const float* dog, int s_out, int h, int w,
-                               float gate, int capacity, int* row_lists,
-                               int* row_counts, long long* coords,
+// B1: strict 26-neighbour extrema at |v| >= gate of n_oct DoG stacks (the
+// octaves of one image), one launch for all. dog: host array of n_oct device
+// pointers, stack o of shape [s_out + 2, h, w]; dims: host array [n_oct, 4]
+// of (s_out, h, w, capacity). Per octave the hits are listed as scan-order
+// (s, y, x) rows, each image row keeping its first 128, truncated at its
+// capacity, zeros past the kept ones; the octaves' lists follow each other
+// in coords [sum capacity, 3] and valid [sum capacity]. n_total: [n_oct],
+// the uncapped hit counts. status: [status_len] 64-bit words of scratch (zeroed
+// here), status_len = 1 + the sum over octaves of s_out * ceil(h / 8).
+// At most 8 octaves a call.
+cudaError_t cvs_detect_compact(int n_oct, const float* const* dog,
+                               const int* dims, float gate, long long* coords,
                                unsigned char* valid, int* n_total,
+                               unsigned long long* status, int status_len,
                                cudaStream_t stream);
 
 // B2: raw [n, 36] orientation histograms over one gradient level
@@ -40,12 +45,14 @@ cudaError_t cvs_descriptors(const float* mod, const float* ang, int h, int w,
 // B7 (one direction): for each of the nb query rows of qry [nb, 128]
 // with qry_valid set, the two smallest L1 distances to the rows of ref
 // [na, 128] with ref_valid set and the index of the nearest; d1 = d2 = BIG
-// and i1 = 0 for the other queries.
+// and i1 = 0 for the other queries. Scratch: part_d [2 * ceil(na / 64) *
+// nb] floats, part_i [ceil(na / 64) * nb] ints. Two launches (the tile pass
+// and its merge).
 cudaError_t cvs_l1_two_nearest(const float* qry, const float* ref,
                                const unsigned char* qry_valid,
                                const unsigned char* ref_valid, int nb, int na,
-                               float* d1, float* d2, int* i1,
-                               cudaStream_t stream);
+                               float* part_d, int* part_i, float* d1,
+                               float* d2, int* i1, cudaStream_t stream);
 
 // B4: both 2-NN directions from one distance pass. For each query row
 // with qry_valid set, (d1q, d2q, i1q) over the references with ref_valid

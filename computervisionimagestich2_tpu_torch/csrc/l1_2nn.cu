@@ -8,9 +8,11 @@
 // valid reference over the valid queries (contract: ops/distance.py::
 // two_nearest_bidir). Invalid rows get d1 = d2 = BIG and i1 = 0. B7
 // replaces two_nearest_l1_pallas (_kernel), one direction (contract:
-// ops/distance.py::two_nearest), and keeps the loop of l1.cuh.
+// ops/distance.py::two_nearest): the same tile pass with the query rows'
+// scans and merge only, in device kernels of its own name, so a profile
+// keeps the two apart.
 //
-// What bounds B4 on the H100: arithmetic. Each live query x reference
+// What bounds both on the H100: arithmetic. Each live query x reference
 // distance is 128 subtractions and 128 adds of an absolute value on the
 // FP32 pipes (no tensor-core form of L1 exists); device memory traffic is
 // only the two descriptor sets and the small per-tile partials. The design
@@ -19,21 +21,23 @@
 //   with the tile pass of l1_tile.cuh (256 threads, 4 x 4 accumulators
 //   each, features staged 32 at a time), which B5 runs too.
 // - Each tile yields both directions: its 64 x 64 distances go to shared
-//   memory, one thread scans each query row and one each reference column
-//   in ascending index with a strict `<`, and each writes a partial top-2
-//   for its tile. A second small kernel merges the partials of each row in
-//   ascending tile order, also with a strict `<`: the lowest index wins,
-//   a tie at d1 gives d2 = d1, exactly as one sequential pass would.
+//   memory, one thread scans each query row and (B4) one each reference
+//   column in ascending index with a strict `<`, and each writes a partial
+//   top-2 for its tile. A second small kernel merges the partials of each
+//   row in ascending tile order, also with a strict `<`: the lowest index
+//   wins, a tie at d1 gives d2 = d1, exactly as one sequential pass would.
 // - The grid is persistent: about two blocks per SM walk the live tiles,
 //   whose count follows from the live bounds of the masks, read on the
 //   device (live_bound), so the host never synchronises and dead capacity
-//   costs nothing. The TPU kernel carried the per-reference top-2 across
-//   its sequential grid in VMEM scratch; Hopper blocks run in no order,
-//   hence the partials and the merge. No float atomics: two runs give the
-//   same bits.
+//   costs nothing. (B7's first design gave a query to a thread and walked
+//   every reference in a block of 128: 12 blocks on 132 SMs at 1,466
+//   queries.) The TPU kernel carried the per-reference top-2 across its
+//   sequential grid in VMEM scratch; Hopper blocks run in no order, hence
+//   the partials and the merge. No float atomics: two runs give the same
+//   bits.
 // - Every distance is summed over f = 0..127 in ascending order into one
-//   float from 0, as l1.cuh does, and |a - b| = |b - a| in IEEE
-//   arithmetic, so both directions and B5's counts see the same bits.
+//   float from 0, and |a - b| = |b - a| in IEEE arithmetic, so both
+//   directions, B7 and B5's counts see the same bits.
 #include "api.h"
 #include "l1_tile.cuh"
 
@@ -41,38 +45,90 @@ namespace {
 
 using namespace cvs;
 
-// ------------------------------------------------------------------ B7
-__global__ void __launch_bounds__(kQueries)
-l1_two_nearest_kernel(const float* __restrict__ qry,
-                      const float* __restrict__ ref,
-                      const unsigned char* __restrict__ qry_valid,
-                      const unsigned char* __restrict__ ref_valid, int nb,
-                      int na, float* __restrict__ d1_out,
-                      float* __restrict__ d2_out, int* __restrict__ i1_out) {
-  const int q = blockIdx.x * kQueries + threadIdx.x;
-  const bool live = q < nb && qry_valid[q];
-  if (!__syncthreads_or(live)) {  // no valid query in the block: uniform exit
-    if (q < nb) {
-      d1_out[q] = kBig;
-      d2_out[q] = kBig;
-      i1_out[q] = 0;
-    }
-    return;
-  }
-  const int nr = live_bound<kQueries>(ref_valid, na);
-  float qv[kFeat];
-  load_query(qry, q, live, qv);
-  const Top2 t = l1_top2(qv, ref, ref_valid, nr);
+constexpr int kMergeThreads = 256;
+
+// Thread tid < 64 of a tile block: the partial top-2 of query row q0 + tid
+// over the tile's references, into the partials at [rt * nb + q].
+__device__ __forceinline__ void write_query_partial(
+    const TileSmem& sm, int tid, int q0, int r0, int rt, int nb,
+    float* __restrict__ part_d1, float* __restrict__ part_d2,
+    int* __restrict__ part_i1) {
+  const int q = q0 + tid;
+  const Top2 p = tile_scan(sm.stage + tid * kDistPitch, 1, sm.r_ok, r0);
   if (q < nb) {
-    d1_out[q] = live ? t.d1 : kBig;
-    d2_out[q] = live ? t.d2 : kBig;
-    i1_out[q] = live ? t.i1 : 0;
+    const long long k = (long long)rt * nb + q;
+    part_d1[k] = p.d1;
+    part_d2[k] = p.d2;
+    part_i1[k] = p.i1;
+  }
+}
+
+// One thread per row of a merge block: a valid row (`live`) merges its
+// partials [t * n + row] over the other side's live tiles in ascending tile
+// order; the other rows get BIG, BIG, 0. Every thread of the block calls it.
+__device__ __forceinline__ Top2 merge_row(
+    bool live, const unsigned char* __restrict__ other_valid, int other_n,
+    int n, int row, const float* __restrict__ p1,
+    const float* __restrict__ p2, const int* __restrict__ pi) {
+  Top2 a{kBig, kBig, 0};
+  if (__syncthreads_or(live)) {  // uniform across the block
+    const int n_tiles =
+        (live_bound<kMergeThreads>(other_valid, other_n) + kTile - 1) / kTile;
+    for (int t = 0; live && t < n_tiles; ++t) {
+      const long long k = (long long)t * n + row;
+      if (merge_top2(a.d1, a.d2, p1[k], p2[k])) a.i1 = pi[k];
+    }
+  }
+  return a;
+}
+
+// ------------------------------------------------------------------ B7
+// Partial top-2s part_* [n_rt_cap, nb]: query row q over reference tile rt
+// at rt * nb + q. Only the live tiles are written.
+__global__ void __launch_bounds__(kTileThreads, 2)
+l1_one_way_tile_kernel(const float* __restrict__ qry,
+                       const float* __restrict__ ref,
+                       const unsigned char* __restrict__ qry_valid,
+                       const unsigned char* __restrict__ ref_valid, int nb,
+                       int na, float* __restrict__ part_d1,
+                       float* __restrict__ part_d2,
+                       int* __restrict__ part_i1) {
+  __shared__ TileSmem sm;
+  const int n_qt = (live_bound<kTileThreads>(qry_valid, nb) + kTile - 1) /
+                   kTile;
+  const int n_rt = (live_bound<kTileThreads>(ref_valid, na) + kTile - 1) /
+                   kTile;
+  for (int t = blockIdx.x; t < n_qt * n_rt; t += gridDim.x) {
+    const int qt = t / n_rt;
+    const int rt = t - qt * n_rt;
+    l1_tile_distances(qry, ref, qry_valid, ref_valid, nb, na, qt * kTile,
+                      rt * kTile, sm);
+    if (threadIdx.x < kTile)
+      write_query_partial(sm, threadIdx.x, qt * kTile, rt * kTile, rt, nb,
+                          part_d1, part_d2, part_i1);
+  }
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+l1_one_way_merge_kernel(const unsigned char* __restrict__ qry_valid,
+                        const unsigned char* __restrict__ ref_valid, int nb,
+                        int na, const float* __restrict__ part_d1,
+                        const float* __restrict__ part_d2,
+                        const int* __restrict__ part_i1,
+                        float* __restrict__ d1, float* __restrict__ d2,
+                        int* __restrict__ i1) {
+  const int row = blockIdx.x * kMergeThreads + threadIdx.x;
+  const bool live = row < nb && qry_valid[row];
+  const Top2 a = merge_row(live, ref_valid, na, nb, row, part_d1, part_d2,
+                           part_i1);
+  if (row < nb) {
+    d1[row] = a.d1;
+    d2[row] = a.d2;
+    i1[row] = a.i1;
   }
 }
 
 // ------------------------------------------------------------------ B4
-constexpr int kMergeThreads = 256;
-
 // Partial top-2s: part_q_* [n_rt_cap, nb] (query row over reference tile
 // rt, at rt * nb + q) and part_r_* [n_qt_cap, na] (reference row over query
 // tile qt, at qt * na + r). Only the live tiles are written.
@@ -100,14 +156,8 @@ l1_bidir_tile_kernel(const float* __restrict__ qry,
     const int r0 = rt * kTile;
     l1_tile_distances(qry, ref, qry_valid, ref_valid, nb, na, q0, r0, sm);
     if (tid < kTile) {  // query row tid over the tile's references
-      const int q = q0 + tid;
-      const Top2 p = tile_scan(sm.stage + tid * kDistPitch, 1, sm.r_ok, r0);
-      if (q < nb) {
-        const long long k = (long long)rt * nb + q;
-        part_q_d1[k] = p.d1;
-        part_q_d2[k] = p.d2;
-        part_q_i1[k] = p.i1;
-      }
+      write_query_partial(sm, tid, q0, r0, rt, nb, part_q_d1, part_q_d2,
+                          part_q_i1);
     } else if (tid < 2 * kTile) {  // reference column over the queries
       const int j = tid - kTile;
       const int r = r0 + j;
@@ -122,9 +172,8 @@ l1_bidir_tile_kernel(const float* __restrict__ qry,
   }
 }
 
-// One thread per row: blocks [0, q_blocks) take the query rows, the rest
-// the reference rows. A valid row merges its partials over the other side's
-// live tiles in ascending tile order; an invalid row gets BIG.
+// One thread per row (merge_row): blocks [0, q_blocks) take the query rows,
+// the rest the reference rows.
 __global__ void __launch_bounds__(kMergeThreads)
 l1_bidir_merge_kernel(const unsigned char* __restrict__ qry_valid,
                       const unsigned char* __restrict__ ref_valid, int nb,
@@ -144,37 +193,51 @@ l1_bidir_merge_kernel(const unsigned char* __restrict__ qry_valid,
   const int n = qside ? nb : na;
   const unsigned char* own = qside ? qry_valid : ref_valid;
   const bool live = row < n && own[row];
-  Top2 a{kBig, kBig, 0};
-  if (__syncthreads_or(live)) {  // uniform across the block
-    const int n_tiles =
-        (live_bound<kMergeThreads>(qside ? ref_valid : qry_valid,
-                                   qside ? na : nb) + kTile - 1) / kTile;
-    const float* p1 = qside ? part_q_d1 : part_r_d1;
-    const float* p2 = qside ? part_q_d2 : part_r_d2;
-    const int* pi = qside ? part_q_i1 : part_r_i1;
-    for (int t = 0; live && t < n_tiles; ++t) {
-      const long long k = (long long)t * n + row;
-      if (merge_top2(a.d1, a.d2, p1[k], p2[k])) a.i1 = pi[k];
-    }
-  }
+  const Top2 a = merge_row(live, qside ? ref_valid : qry_valid,
+                           qside ? na : nb, n, row,
+                           qside ? part_q_d1 : part_r_d1,
+                           qside ? part_q_d2 : part_r_d2,
+                           qside ? part_q_i1 : part_r_i1);
   if (row < n) {
-    (qside ? d1q : d1r)[row] = live ? a.d1 : kBig;
-    (qside ? d2q : d2r)[row] = live ? a.d2 : kBig;
-    (qside ? i1q : i1r)[row] = live ? a.i1 : 0;
+    (qside ? d1q : d1r)[row] = a.d1;
+    (qside ? d2q : d2r)[row] = a.d2;
+    (qside ? i1q : i1r)[row] = a.i1;
   }
 }
 
 }  // namespace
 
+// The persistent grid of a tile pass over n_tiles tiles: two blocks per SM.
+static cudaError_t tile_grid(long long n_tiles, unsigned* grid) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  *grid = (unsigned)(n_tiles < 2LL * sms ? n_tiles : 2LL * sms);
+  return err;
+}
+
 extern "C" cudaError_t cvs_l1_two_nearest(const float* qry, const float* ref,
                                           const unsigned char* qry_valid,
                                           const unsigned char* ref_valid,
-                                          int nb, int na, float* d1, float* d2,
+                                          int nb, int na, float* part_d,
+                                          int* part_i, float* d1, float* d2,
                                           int* i1, cudaStream_t stream) {
   if (nb == 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((nb + kQueries - 1) / kQueries);
-  l1_two_nearest_kernel<<<blocks, kQueries, 0, stream>>>(
-      qry, ref, qry_valid, ref_valid, nb, na, d1, d2, i1);
+  const long long n_qt = (nb + kTile - 1) / kTile;
+  const long long n_rt = (na + kTile - 1) / kTile;
+  float* part_d1 = part_d;
+  float* part_d2 = part_d + n_rt * nb;
+  if (n_rt > 0) {
+    unsigned grid = 0;
+    cudaError_t err = tile_grid(n_qt * n_rt, &grid);
+    if (err != cudaSuccess) return err;
+    l1_one_way_tile_kernel<<<grid, kTileThreads, 0, stream>>>(
+        qry, ref, qry_valid, ref_valid, nb, na, part_d1, part_d2, part_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  l1_one_way_merge_kernel<<<(nb + kMergeThreads - 1) / kMergeThreads,
+                            kMergeThreads, 0, stream>>>(
+      qry_valid, ref_valid, nb, na, part_d1, part_d2, part_i, d1, d2, i1);
   return cudaGetLastError();
 }
 
@@ -195,11 +258,10 @@ extern "C" cudaError_t cvs_l1_two_nearest_bidir(
   int* part_q_i1 = part_i;
   int* part_r_i1 = part_i + len_q;
   if (n_qt * n_rt > 0) {
-    int sms = 0;
-    cudaError_t err = sm_count(&sms);
+    unsigned grid = 0;
+    cudaError_t err = tile_grid(n_qt * n_rt, &grid);
     if (err != cudaSuccess) return err;
-    const long long grid = n_qt * n_rt < 2LL * sms ? n_qt * n_rt : 2LL * sms;
-    l1_bidir_tile_kernel<<<(unsigned)grid, kTileThreads, 0, stream>>>(
+    l1_bidir_tile_kernel<<<grid, kTileThreads, 0, stream>>>(
         qry, ref, qry_valid, ref_valid, nb, na, part_q_d1, part_q_d2,
         part_q_i1, part_r_d1, part_r_d2, part_r_i1);
     err = cudaGetLastError();

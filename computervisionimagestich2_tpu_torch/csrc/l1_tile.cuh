@@ -1,4 +1,4 @@
-// The 64 x 64 tile pass shared by kernels B4 (l1_2nn.cu) and B5
+// The 64 x 64 tile pass shared by kernels B4 and B7 (l1_2nn.cu) and B5
 // (pair_counts.cu): the L1 distances of 64 query rows to 64 reference rows
 // and the top-2 scan of one row or column of that tile.
 //
@@ -7,9 +7,9 @@
 // every feature read from shared memory feeds 4 of them. Features are staged
 // 32 at a time, transposed, in shared memory, with the next chunk prefetched
 // into registers while this one is summed. Every distance is summed over
-// f = 0..127 in ascending order into one float from 0, as l1.cuh does, and
-// |a - b| = |b - a| in IEEE arithmetic, so B4, B5 and B7 see the same bits
-// whichever side is called the query.
+// f = 0..127 in ascending order into one float from 0, and |a - b| = |b - a|
+// in IEEE arithmetic, so B4, B5 and B7 see the same bits whichever side is
+// called the query.
 #pragma once
 #include "l1.cuh"
 

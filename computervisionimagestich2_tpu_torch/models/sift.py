@@ -11,7 +11,9 @@ The structure follows the JAX package's non-bucketed branch: one walk
 radius per level, so keypoints keep the order of the JAX path on the CPU
 (that order decides which pairs RANSAC samples). Detection is the dense
 mask (``detect_impl="xla"``) or the fused detect of ``ops.detect``
-(``"pallas"``, kernel B1 on a CUDA tensor); the orientation and descriptor
+(``"pallas"``, kernel B1 on a CUDA tensor: an octave's DoG stack depends on
+its Gaussian levels only, so the extractor builds every octave first and
+detects them all in one call); the orientation and descriptor
 walks go through ``ops.sift_walks`` (kernels B2 and B3 on a CUDA
 tensor). Live counts stay on the device: nothing here waits for the host.
 """
@@ -80,33 +82,40 @@ def total_keypoint_capacity(h: int, w: int, cap_max: int) -> int:
     return -(-cap // 128) * 128
 
 
+def detect_octaves(dogs: list[torch.Tensor], cfg: SiftConfig):
+    """Candidates of every octave's DoG stack: per octave (coords [cap, 3],
+    valid [cap], candidates dropped), cap = ``candidate_capacity``."""
+    caps = [candidate_capacity(d.shape[1], d.shape[2]) for d in dogs]
+    if cfg.detect_impl == "pallas":
+        # fused detect (kernel B1 on CUDA tensors, one launch for all the
+        # octaves): the dense path's coords / valid, plus a per-row cap of
+        # 128 hits. dropped = uncapped hits minus kept slots: covers both
+        # the capacity and the per-row cap, so no truncation goes unreported
+        return [(coords, cvalid, torch.clamp(
+            n_cand - cvalid.sum(dtype=torch.int32), min=0))
+            for coords, cvalid, n_cand in detect.detect_compact_octaves(
+                dogs, cfg.peak_thresh, caps)]
+    out = []
+    for dog, cap in zip(dogs, caps):
+        mask = sk.extrema_mask(dog, cfg.peak_thresh)
+        # telemetry: candidates dropped by the static capacity
+        out.append((*sk.compact_mask(mask, cap), torch.clamp(
+            mask.sum(dtype=torch.int32) - cap, min=0)))
+    return out
+
+
 def _process_octave(octave: torch.Tensor, cfg: SiftConfig,
-                    octave_index: int):
-    """Detect + refine + orient + describe all keypoints of one octave.
+                    octave_index: int, dog: torch.Tensor, candidates: tuple):
+    """Refine + orient + describe all keypoints of one octave (``dog``,
+    ``candidates``: its DoG stack and its entry of ``detect_octaves``).
 
     Returns fixed-capacity (desc, xy, sigma, ok, response, stats[3]) with
     xy / sigma in input-image coordinates."""
     _, h, w = octave.shape
     xper = float(2 ** octave_index)
-    cap_cand = candidate_capacity(h, w)
     cap_kp = keypoint_capacity(h, w, cfg.max_keypoints_per_octave)
 
-    dog = sk.dog_stack(octave)
-    if cfg.detect_impl == "pallas":
-        # fused detect (kernel B1 on a CUDA tensor): the dense path's
-        # coords / valid, plus a per-row cap of 128 hits
-        coords, cvalid, n_cand = detect.detect_compact(dog, cfg.peak_thresh,
-                                                       cap_cand)
-        # dropped = uncapped hits minus kept slots: covers both the capacity
-        # and the per-row cap, so no truncation goes unreported
-        cand_dropped = torch.clamp(n_cand - cvalid.sum(dtype=torch.int32),
-                                   min=0)
-    else:
-        mask = sk.extrema_mask(dog, cfg.peak_thresh)
-        coords, cvalid = sk.compact_mask(mask, cap_cand)
-        n_cand = mask.sum(dtype=torch.int32)
-        # telemetry: candidates dropped by the static capacity
-        cand_dropped = torch.clamp(n_cand - cap_cand, min=0)
+    coords, cvalid, cand_dropped = candidates
     ok, x, y, sigma, lvl, resp = sk.refine_keypoints(
         dog, coords, cvalid, w, h, cfg.peak_thresh, cfg.edge_thresh,
         cfg.s_min, cfg.s_max, xper, cfg.sigma0, cfg.n_levels)
@@ -185,16 +194,22 @@ def sift_extract_stats(gray: torch.Tensor, cfg: SiftConfig = SiftConfig()):
     if cfg.o_min > 0:
         base = vlfeat_downsample(base, cfg.o_min)
 
-    per_octave = []
+    # the next octave's base depends on this octave's Gaussian levels only,
+    # so the whole scale space is built before anything is detected
+    octaves = []
     for o in range(cfg.n_octaves):
         if min(base.shape[-2:]) < 8:
             break
-        octave = build_octave(base, cfg, first_sigma if o == 0 else None)
-        # xper = 2^(o_min + o) maps octave pixels back to input coordinates
-        per_octave.append(_process_octave(octave, cfg, cfg.o_min + o))
+        octaves.append(build_octave(base, cfg, first_sigma if o == 0 else None))
         if o + 1 < cfg.n_octaves:
             # next octave base: decimate level s_min + S (octave index S)
-            base = vlfeat_downsample(octave[cfg.n_levels], 1)
+            base = vlfeat_downsample(octaves[-1][cfg.n_levels], 1)
+    dogs = [sk.dog_stack(octave) for octave in octaves]
+    # xper = 2^(o_min + o) maps octave pixels back to input coordinates
+    per_octave = [
+        _process_octave(octave, cfg, cfg.o_min + o, dog, cand)
+        for o, (octave, dog, cand) in enumerate(
+            zip(octaves, dogs, detect_octaves(dogs, cfg)))]
 
     desc, xy, sigma, valid, resp = (torch.cat(parts) for parts in
                                     zip(*(p[:5] for p in per_octave)))

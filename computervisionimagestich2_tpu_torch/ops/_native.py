@@ -45,17 +45,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # (dog, s_out, h, w, gate, capacity, row_lists, row_counts, coords,
-    #  valid, n_total, stream)
-    "cvs_detect_compact": (_P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P),
+    # (n_oct, dog pointers (host), dims (host), gate, coords, valid, n_total,
+    #  status, status_len, stream)
+    "cvs_detect_compact": (_I, _P, _P, _F, _P, _P, _P, _P, _I, _P),
     # (mod, ang, h, w, x, y, sigma, n_valid, n, radius, hist, stream)
     "cvs_orientation_hist": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
     # (mod, ang, h, w, x, y, sigma, angle, n_valid, n, radius, magnif,
     #  window_size, desc, stream)
     "cvs_descriptors": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F,
                         _P, _P),
-    # (qry, ref, qry_valid, ref_valid, nb, na, d1, d2, i1, stream)
-    "cvs_l1_two_nearest": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # (qry, ref, qry_valid, ref_valid, nb, na, part_d, part_i, d1, d2, i1,
+    #  stream)
+    "cvs_l1_two_nearest": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
     # (qry, ref, qry_valid, ref_valid, nb, na, part_d, part_i, d1q, d2q,
     #  i1q, d1r, d2r, i1r, stream)
     "cvs_l1_two_nearest_bidir": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,

@@ -5,14 +5,16 @@ Replaces the reference's kd-forest ANN matcher (vl/kdtree.c) and the 2-NN
 + ratio wrapper (ImageProcess.cpp:273-351) with an exact search: every live
 query x reference L1 distance, top-2 per row, lowest index on ties.
 
-``two_nearest`` is one direction: kernel B7 of ``csrc/l1_2nn.cu`` on a
-CUDA tensor (the port of ``two_nearest_l1_pallas``, behind ``ratio_match``
-and ``models.matcher.match_features``), ``two_nearest_plain`` on a CPU
-tensor. ``two_nearest_bidir`` is kernel B4 (the port of
+``two_nearest_bidir`` is kernel B4 of ``csrc/l1_2nn.cu`` (the port of
 ``two_nearest_l1_bidir_pallas``): both directions from one distance pass
 over 64 x 64 tiles, whose per-tile top-2s a second kernel merges
 (``merge_top2_plain`` is that merge in plain PyTorch); on a CPU tensor it
-is ``two_nearest_plain`` run both ways. ``pair_match_counts`` is kernel B5
+is ``two_nearest_plain`` run both ways. ``two_nearest`` is one direction:
+kernel B7 (the port of ``two_nearest_l1_pallas``, behind ``ratio_match``
+and ``models.matcher.match_features``), the same tile pass with the query
+rows' scans and merge only (``two_nearest_tiled_plain`` is that plan in
+plain PyTorch), so it gives the bits of B4's query side;
+``two_nearest_plain`` on a CPU tensor. ``pair_match_counts`` is kernel B5
 (``csrc/pair_counts.cu``, the port of ``pair_match_counts_pallas``): the
 ratio-test counts of many image pairs from B4's tile pass run over the live
 tiles of every pair, chunked over the pairs within a fixed scratch budget,
@@ -26,6 +28,7 @@ import torch
 from . import _native
 
 BIG = 3.0e38
+TILE = 64  # queries and references per tile of kernels B4, B5 and B7
 
 
 def two_nearest_plain(qry: torch.Tensor, ref: torch.Tensor,
@@ -70,24 +73,26 @@ def two_nearest(qry: torch.Tensor, ref: torch.Tensor,
                        1)
     _native.check_cuda("two_nearest.ref_valid", ref_valid, torch.bool, (na,),
                        1)
-    d1 = torch.empty((nb,), dtype=torch.float32, device=qry.device)
-    d2 = torch.empty((nb,), dtype=torch.float32, device=qry.device)
-    i1 = torch.empty((nb,), dtype=torch.int32, device=qry.device)
+    dev = qry.device
+    d1 = torch.empty((nb,), dtype=torch.float32, device=dev)
+    d2 = torch.empty((nb,), dtype=torch.float32, device=dev)
+    i1 = torch.empty((nb,), dtype=torch.int32, device=dev)
     if nb == 0:
         return d1, d2, i1.long()
+    n_part = -(-na // TILE) * nb  # a partial top-2 per query and ref tile
+    part_d = torch.empty((2 * n_part,), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_part,), dtype=torch.int32, device=dev)
     _native.LAUNCHES["l1_two_nearest"] += 1
     _native.launch("cvs_l1_two_nearest", qry.data_ptr(), ref.data_ptr(),
                    qry_valid.data_ptr(), ref_valid.data_ptr(), nb, na,
-                   d1.data_ptr(), d2.data_ptr(), i1.data_ptr())
+                   part_d.data_ptr(), part_i.data_ptr(), d1.data_ptr(),
+                   d2.data_ptr(), i1.data_ptr())
     return d1, d2, i1.long()
-
-
-TILE = 64  # queries and references per tile of kernel B4
 
 
 def merge_top2_plain(d1: torch.Tensor, d2: torch.Tensor, i1: torch.Tensor,
                      valid: torch.Tensor):
-    """Plain PyTorch version of B4's merge: per-tile partial top-2s
+    """Plain PyTorch version of B4's and B7's merge: per-tile partial top-2s
     d1, d2, i1 [T, N] (tile t's rows hold the 2-NN of each row over the
     t-th tile of the other side, i1 as global indices) merged in ascending
     tile order with a strict ``<``, so the lowest index wins and a tie at
@@ -104,6 +109,25 @@ def merge_top2_plain(d1: torch.Tensor, d2: torch.Tensor, i1: torch.Tensor,
         ai = torch.where(win, bi, ai)
     return (torch.where(valid, a1, BIG), torch.where(valid, a2, BIG),
             torch.where(valid, ai, 0))
+
+
+def two_nearest_tiled_plain(qry: torch.Tensor, ref: torch.Tensor,
+                            qry_valid: torch.Tensor, ref_valid: torch.Tensor):
+    """Kernel B7's plan in plain PyTorch: each query's partial top-2 over
+    every live 64-reference tile (``two_nearest_plain`` on the slice, i1
+    made global), merged in ascending tile order (``merge_top2_plain``).
+    Equals ``two_nearest_plain`` exactly."""
+    nb = qry.shape[0]
+    n_rt = -(-_live_bound(ref_valid) // TILE)
+    d1 = torch.empty((n_rt, nb), dtype=torch.float32, device=qry.device)
+    d2 = torch.empty((n_rt, nb), dtype=torch.float32, device=qry.device)
+    i1 = torch.empty((n_rt, nb), dtype=torch.int64, device=qry.device)
+    for t in range(n_rt):
+        sl = slice(t * TILE, (t + 1) * TILE)
+        d1[t], d2[t], i1[t] = two_nearest_plain(qry, ref[sl], qry_valid,
+                                                ref_valid[sl])
+        i1[t] += t * TILE
+    return merge_top2_plain(d1, d2, i1, qry_valid)
 
 
 def two_nearest_bidir(qry: torch.Tensor, ref: torch.Tensor,

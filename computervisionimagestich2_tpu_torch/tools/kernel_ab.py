@@ -14,28 +14,36 @@ one NVIDIA GPU and ``nvcc``. Steps:
    static shared memory of each kernel;
 2. one default-path stitch of this tree on the four scrambled 512x384
    crops of ``chip_smoke.py`` (phase 3), recording the arguments of every
-   call of B2 (``sift_walks.orientation_hist``), B3
+   call of B1 (``detect.detect_compact_octaves``: the DoG stacks of an
+   image's octaves), B2 (``sift_walks.orientation_hist``), B3
    (``sift_walks.descriptors``), B4 (``distance.two_nearest_bidir``) and
-   B5 (``distance.pair_match_counts``); and B5's arguments for ten 512x384
-   crops of one scene (45 pairs, ``pair_match_counts@n10``) and for four
-   1440x1080 crops (``pair_match_counts@1440x1080``);
+   B5 (``distance.pair_match_counts``); B7's arguments
+   (``distance.two_nearest``) in ``match_features`` of two neighbouring
+   crops, as ``chip_smoke.py`` phase 6 calls it; and B5's arguments for
+   ten 512x384 crops of one scene (45 pairs, ``pair_match_counts@n10``)
+   and for four 1440x1080 crops (``pair_match_counts@1440x1080``);
 3. in turns parent, this tree, this tree, parent (a subprocess each, with
    that tree first on ``sys.path``): each tree's wrappers on the recorded
-   calls, held against the plain versions on the card (B2 rtol 1e-5 with
-   atol 1e-5 x max, B3 atol 2e-6, B4 d1 / d2 rtol 1e-5 and i1 where the
-   2-NN gap exceeds 1e-4 d1, B5 exact counts, also against one B4 launch
-   per pair) and against a second run (equal bits); then, without
-   ``--check``, the time of all recorded calls of a kernel in a row, mean
-   of 10 passes after one warm-up: the device time of the kernels alone
-   from ``torch.profiler`` (``device_ms_*``: per panorama for the walks
-   and B5, per edge for B4) and the time between CUDA events around the
-   calls, which adds the host's gaps between launches
-   (``ms_all_calls_events``); B2's first call with no live keypoint (the
-   cost of its launch alone, ``device_ms_no_keypoints``); and five warm
-   default-path stitches of the recorded images after one cold one
-   (``stitch_warm_*``, host clock), with the live feature count of every
-   image and a hash of the panorama, which the last step compares between
-   the trees (``same_features``, ``same_panorama``).
+   calls (a tree without ``detect_compact_octaves`` detects the recorded
+   stacks one ``detect_compact`` each), held against the plain versions
+   on the card (B1 exact, B2 rtol 1e-5 with atol 1e-5 x max, B3 atol 2e-6,
+   B4 and B7 d1 / d2 rtol 1e-5 and i1 where the 2-NN gap exceeds 1e-4 d1,
+   B5 exact counts, also against one B4 launch per pair) and against a
+   second run (equal bits), with a hash of B1's (coords, valid, n_total)
+   and B7's (d1, d2, i1) outputs; then, without ``--check``, the time of
+   all recorded calls of a kernel in a row, mean of 10 passes after one
+   warm-up: the device time of the kernels alone from ``torch.profiler``
+   (``device_ms_*``: per panorama for B1, the walks and B5, per edge for
+   B4, per call for B7), for B1 also of every device event of the calls
+   (``device_ms_all_events``: the launcher's memset beside the kernel), and the
+   time between CUDA events around the calls, which adds the host's gaps
+   between launches (``ms_all_calls_events``); B2's first call with no
+   live keypoint (the cost of its launch alone,
+   ``device_ms_no_keypoints``); and five warm default-path stitches of the
+   recorded images after one cold one (``stitch_warm_*``, host clock),
+   with the live feature count of every image and a hash of the panorama.
+   The last step compares between the trees: ``same_features``,
+   ``same_panorama``, ``same_b1_outputs``, ``same_b7_outputs``.
 
 Prints one JSON object per step and writes them all to ``--out``.
 """
@@ -49,10 +57,12 @@ import sys
 import tempfile
 from pathlib import Path
 
-SITES = {"sift_orientation_hist": ("sift_walks", "orientation_hist"),
+SITES = {"detect_compact": ("detect", "detect_compact_octaves"),
+         "sift_orientation_hist": ("sift_walks", "orientation_hist"),
          "sift_descriptors": ("sift_walks", "descriptors"),
          "l1_two_nearest_bidir": ("distance", "two_nearest_bidir"),
-         "pair_match_counts": ("distance", "pair_match_counts")}
+         "pair_match_counts": ("distance", "pair_match_counts"),
+         "l1_two_nearest": ("distance", "two_nearest")}
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -111,30 +121,43 @@ def ptxas_report(tree: Path) -> dict:
 
 def record_inputs(path: Path) -> dict:
     """One cold default-path stitch of this tree on chip_smoke's crops,
-    keeping the arguments of every B2, B3, B4 and B5 call (as CPU tensors),
-    and B5's arguments at ten crops and at 1440x1080."""
+    keeping the arguments of every B1-B5 call (as CPU tensors), B7's in
+    ``match_features`` of two neighbouring crops, and B5's arguments at
+    ten crops and at 1440x1080."""
     import torch
 
     import chip_smoke
     from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.core.types import Features
+    from computervisionimagestich2_tpu_torch.models import matcher
     from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
-    from computervisionimagestich2_tpu_torch.ops import distance, sift_walks
+    from computervisionimagestich2_tpu_torch.ops import (detect, distance,
+                                                         sift_walks)
 
-    mods = {"sift_walks": sift_walks, "distance": distance}
+    def to_cpu(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().cpu()
+        return [to_cpu(x) for x in a] if isinstance(a, list) else a
+
+    mods = {"detect": detect, "sift_walks": sift_walks, "distance": distance}
     calls = {name: [] for name in SITES}
     orig = {}
     for name, (mod, attr) in SITES.items():
         fn = orig[name] = getattr(mods[mod], attr)
 
         def wrapped(*args, _fn=fn, _name=name):
-            calls[_name].append(tuple(
-                a.detach().cpu() if isinstance(a, torch.Tensor) else a
-                for a in args))
+            calls[_name].append(tuple(to_cpu(a) for a in args))
             return _fn(*args)
         setattr(mods[mod], attr, wrapped)
     images = chip_smoke.scrambled(chip_smoke.crops(512, 384, 224, 2, 0))
     try:
-        Stitcher(DEFAULT_CONFIG, device="cuda").stitch(images)
+        st = Stitcher(DEFAULT_CONFIG, device="cuda")
+        st.stitch(images)
+        assert not calls["l1_two_nearest"]  # B7 is off the stitch path
+        feats = st._matching_feats()
+        a, b = (chip_smoke.SCRAMBLE.index(k) for k in (0, 1))
+        matcher.match_features(Features(*(x[a] for x in feats)),
+                               Features(*(x[b] for x in feats)))
     finally:
         for name, (mod, attr) in SITES.items():
             setattr(mods[mod], attr, orig[name])
@@ -155,23 +178,58 @@ import json, sys
 tree, inputs, check = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
 sys.path.insert(0, tree)
 import torch
-from computervisionimagestich2_tpu_torch.ops import distance, sift_walks, _native
+import hashlib
+from computervisionimagestich2_tpu_torch.ops import (detect, distance,
+                                                     sift_walks, _native)
 assert _native.__file__.startswith(tree), _native.__file__
 calls = torch.load(inputs)
 images = [im.numpy() for im in calls.pop("images")]
 dev = torch.device("cuda")
-calls = {k: [tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
-                   for a in c) for c in v] for k, v in calls.items()}
+
+
+def to_dev(a):
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
+    return [to_dev(x) for x in a] if isinstance(a, list) else a
+
+
+calls = {k: [tuple(to_dev(a) for a in c) for c in v]
+         for k, v in calls.items()}
 _native.build()
 # device kernels of each wrapper, old and new designs (name substrings)
-kernels = {"sift_orientation_hist": ("orientation_hist_kernel",),
+kernels = {"detect_compact": ("detect_rows_kernel", "detect_flatten_kernel",
+                              "detect_octaves_kernel"),
+           "sift_orientation_hist": ("orientation_hist_kernel",),
            "sift_descriptors": ("descriptors_kernel",),
            "l1_two_nearest_bidir": ("l1_two_nearest_kernel",
                                     "l1_bidir_tile_kernel",
                                     "l1_bidir_merge_kernel"),
            "pair_match_counts": ("pair_counts_kernel", "pair_plan_kernel",
-                                 "pair_tile_kernel", "pair_count_kernel")}
-fns = {"sift_orientation_hist": (sift_walks.orientation_hist,
+                                 "pair_tile_kernel", "pair_count_kernel"),
+           "l1_two_nearest": ("l1_two_nearest_kernel",
+                              "l1_one_way_tile_kernel",
+                              "l1_one_way_merge_kernel")}
+
+
+def detect_octaves(dogs, tp, caps):
+    # all the DoG stacks of an image: one call where the tree has it, else
+    # one detect_compact per stack
+    if hasattr(detect, "detect_compact_octaves"):
+        return detect.detect_compact_octaves(dogs, tp, caps)
+    return [detect.detect_compact(d, tp, c) for d, c in zip(dogs, caps)]
+
+
+def digest(h, tensors):
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+
+
+fns = {"detect_compact": (
+           detect_octaves,
+           lambda dogs, tp, caps: [detect.detect_compact_plain(d, tp, c)
+                                   for d, c in zip(dogs, caps)]),
+       "l1_two_nearest": (distance.two_nearest, distance.two_nearest_plain),
+       "sift_orientation_hist": (sift_walks.orientation_hist,
                                  sift_walks.orientation_hist_plain),
        "sift_descriptors": (sift_walks.descriptors,
                             sift_walks.descriptors_plain),
@@ -185,30 +243,50 @@ out = {"tree": tree, "gpu": torch.cuda.get_device_name(0)}
 
 
 def device_ms(fn, name, reps=10):
+    # (the named kernels' device ms, every device event's) per pass
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us = every = 0.0
     for e in prof.key_averages():
         t = (getattr(e, "self_device_time_total", 0)
              or getattr(e, "self_cuda_time_total", 0))
-        if str(e.device_type).endswith("CUDA") and any(
-                k in e.key for k in kernels[name]):
-            us += t
-    return us / 1e3 / reps
+        if str(e.device_type).endswith("CUDA"):
+            every += t
+            if any(k in e.key for k in kernels[name]):
+                us += t
+    return us / 1e3 / reps, every / 1e3 / reps
 
 
 for key in calls:
     name = key.split("@")[0]  # "pair_match_counts@n10": another input set
     kern, plain = fns[name]
     err = 0.0
+    sha = hashlib.sha256()
     for c in calls[key]:
         a, b = kern(*c), kern(*c)
         p = plain(*c)
-        if name == "pair_match_counts":
+        if name == "detect_compact":
+            for (ck, vk, nk), (cb, vb, nb_), (cp, vp, np_) in zip(a, b, p):
+                assert torch.equal(ck, cp) and torch.equal(vk, vp)
+                assert int(nk) == int(np_), (int(nk), int(np_))
+                assert torch.equal(ck, cb) and torch.equal(vk, vb)
+                assert int(nk) == int(nb_), "not deterministic"
+                digest(sha, (ck, vk, nk))
+        elif name == "l1_two_nearest":
+            ok = c[2]
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+                "not deterministic"
+            torch.testing.assert_close(a[0][ok], p[0][ok], rtol=1e-5, atol=0)
+            torch.testing.assert_close(a[1][ok], p[1][ok], rtol=1e-5, atol=0)
+            clear = ok & ((p[1] - p[0]) > 1e-4 * p[0])
+            assert torch.equal(a[2][clear], p[2][clear])
+            err = max(err, float((a[0][ok] - p[0][ok]).abs().max()))
+            digest(sha, a)
+        elif name == "pair_match_counts":
             assert torch.equal(a, b), "not deterministic"
             # a query within rounding of the ratio may fall either way
             err = max(err, float((a - p).abs().max()))
@@ -239,6 +317,10 @@ for key in calls:
                     atol=1e-5 * float(p[0].abs().max()))
             err = max(err, float((a[0] - p[0]).abs().max()))
     rec = {"calls": len(calls[key]), "max_abs_err": err}
+    if name in ("detect_compact", "l1_two_nearest"):
+        rec["outputs_sha256"] = sha.hexdigest()[:16]
+    if name == "detect_compact":
+        rec["octaves"] = sum(len(c[0]) for c in calls[key])
     if name == "pair_match_counts":
         rec["live"] = calls[key][0][1].sum(dim=1).tolist()
         rec["slots"] = calls[key][0][0].shape[1]
@@ -258,20 +340,24 @@ for key in calls:
         end.record()
         end.synchronize()
         rec["ms_all_calls_events"] = start.elapsed_time(end) / 10
-        rec["device_ms_all_calls"] = device_ms(all_calls, name)
+        rec["device_ms_all_calls"], every = device_ms(all_calls, name)
         rec["device_ms_per_call"] = rec["device_ms_all_calls"] / len(
             calls[key])
+        if name == "detect_compact":
+            rec["device_ms_all_events"] = every
+            c = calls[key][0]
+            rec["device_ms_first_call"] = device_ms(lambda: kern(*c), name)[0]
         if name == "sift_orientation_hist":
             c = list(calls[key][0])
-            rec["device_ms_first_call"] = device_ms(lambda: kern(*c), name)
+            rec["device_ms_first_call"] = device_ms(lambda: kern(*c), name)[0]
             c[5] = torch.zeros_like(c[5])  # n_valid = 0: the launch alone
-            rec["device_ms_no_keypoints"] = device_ms(lambda: kern(*c), name)
+            rec["device_ms_no_keypoints"] = device_ms(lambda: kern(*c),
+                                                      name)[0]
     out[key] = rec
 if not check:  # the whole default path, warm, on the recorded images
     import statistics, time
     from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
     from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
-    import hashlib
     st = Stitcher(DEFAULT_CONFIG, device="cuda")
     pano = st.stitch(images)
     out["feature_counts"] = st._matching_feats().valid.sum(dim=1).tolist()
@@ -342,6 +428,11 @@ def main(argv=None) -> int:
                         "same_panorama": runs["parent"]["panorama"]
                         == runs["this"]["panorama"]})
         print(json.dumps(results[-1]), flush=True)
+    runs = {r["run"]: r for r in results if "run" in r}
+    results.append({f"same_{kid}_outputs": runs["parent"][name][
+        "outputs_sha256"] == runs["this"][name]["outputs_sha256"]
+        for kid, name in (("b1", "detect_compact"), ("b7", "l1_two_nearest"))})
+    print(json.dumps(results[-1]), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1))

@@ -3,7 +3,9 @@ kernel B1) and the SIFT extractor on its ``detect_impl="pallas"`` branch.
 
 The detect is held exactly against ``detect_compact_pallas`` in interpret
 mode, including a binding capacity and a row with more extrema than the
-128 a row keeps; the extractor against the port's dense branch (bit
+128 a row keeps, and the kernel's plan (bands, capped row lists, a prefix
+scan) against the plain version; the extractor, which detects all its
+octaves in one call, against the port's dense branch (bit
 identical) and against the JAX extractor at the gates of tests/test_sift.py.
 """
 import dataclasses
@@ -21,7 +23,8 @@ from computervisionimagestich2_tpu.ops.pallas_detect import (
 from computervisionimagestich2_tpu_torch.models import sift as tsift
 from computervisionimagestich2_tpu_torch.ops import detect as tdetect
 from test_integration import make_scene
-from test_torch_kernels import _dog_inputs, row_overflow_dog
+from test_torch_kernels import (_dog_inputs, _octave_dogs,
+                                row_overflow_dog)
 
 T = torch.as_tensor
 CFG = SiftConfig(n_octaves=2, max_keypoints_per_octave=512,
@@ -48,6 +51,54 @@ def test_detect_compact_plain_matches_pallas(case):
                                       np.arange(1, 129))
 
 
+def _banded_cases():
+    """The five DoG cases, and the 298-hit row under a capacity of 100: the
+    list ends inside the row's kept hits."""
+    return _dog_inputs() + [(row_overflow_dog(), 1.0, 100)]
+
+
+@pytest.mark.parametrize("case", range(6), ids=[
+    "64x96", "61x130", "33x40", "capacity8", "row_overflow",
+    "row_overflow_capacity100"])
+def test_banded_plan_equals_plain(case):
+    """Kernel B1's plan (bands of rows, capped row lists, a prefix scan
+    over the bands, truncation at the capacity) in plain PyTorch equals
+    ``detect_compact_plain`` exactly: coords, valid and n_total."""
+    dog, tp, cap = _banded_cases()[case]
+    bc, bv, bn = tdetect.detect_compact_banded_plain(T(dog), tp, cap)
+    pc, pv, pn = tdetect.detect_compact_plain(T(dog), tp, cap)
+    assert torch.equal(bc, pc) and torch.equal(bv, pv)
+    assert int(bn) == int(pn) and bn.dtype == pn.dtype
+    if case == 5:
+        assert int(pv.sum()) == 100 and int(pn) == 298
+
+
+def test_detect_compact_octaves_equals_per_octave_calls():
+    """All the DoG stacks of one call (widths off the 32-pixel grid, two
+    rows, the 298-hit row, a binding capacity, a stack without a hit)
+    against one call of the Pallas kernel per stack, in interpret mode,
+    exactly; and the wrapper's refusals."""
+    dogs, tp, caps = _octave_dogs("edges")
+    got = tdetect.detect_compact_octaves([T(d) for d in dogs], tp, caps)
+    assert len(got) == len(dogs)
+    for (c, v, n), dog, cap in zip(got, dogs, caps):
+        jc, jv, jn = detect_compact_pallas(jnp.asarray(dog), tp, cap,
+                                           interpret=True)
+        assert c.shape == (cap, 3) and v.shape == (cap,)
+        np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+        assert int(n) == int(np.asarray(jn))
+    assert [int(v.sum()) for _, v, _ in got[3:]] == [8, 128, 0, 0]
+    with pytest.raises(ValueError):
+        tdetect.detect_compact_octaves([T(dogs[0])], tp, caps[:2])
+    with pytest.raises(ValueError):
+        tdetect.detect_compact_octaves([], tp, [])
+    with pytest.raises(ValueError):  # more stacks than one launch takes
+        tdetect.detect_compact_octaves(
+            [T(dogs[2])] * (tdetect.MAX_OCTAVES + 1), tp,
+            [16] * (tdetect.MAX_OCTAVES + 1))
+
+
 def test_row_overflow_is_reported_in_cand_dropped():
     """An octave whose DoG holds the 298-hit row: the fused branch drops
     170 candidates at the per-row cap and reports them in stats[0]
@@ -60,7 +111,8 @@ def test_row_overflow_is_reported_in_cand_dropped():
     stats = {}
     for impl in ("pallas", "xla"):
         cfg = dataclasses.replace(CFG, detect_impl=impl)
-        stats[impl] = tsift._process_octave(octave, cfg, 0)[5]
+        cand = tsift.detect_octaves([T(dog)], cfg)[0]
+        stats[impl] = tsift._process_octave(octave, cfg, 0, T(dog), cand)[5]
     assert int(stats["pallas"][0]) == 298 - 128
     assert int(stats["xla"][0]) == 0
 

@@ -1,15 +1,19 @@
 """The PyTorch port's default path end to end: ``Stitcher`` with
 ``DEFAULT_CONFIG`` (graph ordering, the fused detect) on the CPU against
-the JAX package's ``Stitcher``, on crops handed over in scrambled order.
+the JAX package's ``Stitcher``, on crops handed over in scrambled order;
+and ``graph_revisit="faithful"`` on a dense match graph, in the planned and
+the incremental loop.
 """
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 from computervisionimagestich2_tpu.models.stitcher import Stitcher as JStitcher
 from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
 from computervisionimagestich2_tpu_torch.models.stitcher import (
-    Stitcher as TStitcher)
+    Stitcher as TStitcher, bfs_edge_seq)
 from test_integration import make_scene
 
 # DEFAULT_CONFIG at the sizes of tests/test_torch_stitch.py, with the
@@ -23,6 +27,15 @@ SMALL_DEFAULT = dataclasses.replace(
     match=dataclasses.replace(DEFAULT_CONFIG.match, max_matches=512,
                               pair_threshold=5),
     ransac=dataclasses.replace(DEFAULT_CONFIG.ransac, n_hypotheses=64))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """A thread pool per pytest worker oversubscribes the shared cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _record_ordering(stitcher):
@@ -73,3 +86,37 @@ def test_default_path_matches_jax_stitcher():
                  - out_j[:h, :w].astype(np.int64)).mean()
     assert mad <= 3.0, mad
     assert st_t.stage_times["ordering"] > 0
+
+
+@pytest.mark.parametrize("planned", [True, False],
+                         ids=["planned", "incremental"])
+def test_faithful_revisit_matches_jax_stitcher(planned):
+    """Three crops that all overlap (a triangle in the match graph) under
+    ``graph_revisit="faithful"``: the BFS stitches image 0 twice, as the
+    reference's unguarded loop does. Same adjacency and start as the JAX
+    ``Stitcher``; canvas shape within +-3 px and MAD <= 3 u8 levels, in the
+    planned and in the incremental loop."""
+    scene = make_scene(np.random.default_rng(0), h=160, w=320)
+    crops = [scene[:, s:s + 160] for s in (100, 0, 50)]
+    cfg = dataclasses.replace(SMALL_DEFAULT, graph_revisit="faithful",
+                              planned=planned)
+    st_t = TStitcher(cfg, device="cpu")
+    st_j = JStitcher(cfg)
+    seen_t, seen_j = _record_ordering(st_t), _record_ordering(st_j)
+    out_t = st_t.stitch(crops)
+    out_j = st_j.stitch(crops)
+    assert seen_t == seen_j
+    adj = seen_t["adj"]
+    assert sum(map(sum, adj)) // 2 == 3, adj  # more edges than a tree
+    seq = bfs_edge_seq([row[:] for row in adj], seen_t["start"], "faithful")
+    dsts = [dst for _, dst, _ in seq]
+    assert len(seq) == 3 and len(set(dsts)) == 2, seq  # an image revisited
+    assert len(bfs_edge_seq([row[:] for row in adj], seen_t["start"])) == 2
+    assert out_t.dtype == np.uint8
+    assert abs(out_t.shape[0] - out_j.shape[0]) <= 3
+    assert abs(out_t.shape[1] - out_j.shape[1]) <= 3
+    h = min(out_t.shape[0], out_j.shape[0])
+    w = min(out_t.shape[1], out_j.shape[1])
+    mad = np.abs(out_t[:h, :w].astype(np.int64)
+                 - out_j[:h, :w].astype(np.int64)).mean()
+    assert mad <= 3.0, mad

@@ -183,6 +183,66 @@ def _masked_2nn_inputs():
     return qry, ref, qv, rv
 
 
+ONE_WAY_CASES = ["holes", "dups", "ragged", "no_reference_rows",
+                 "no_valid_reference", "one_query"]
+
+
+def _one_way_case(case):
+    """Kernel B7's cases (qry, ref, qry_valid, ref_valid): holes in both
+    masks; duplicated descriptors (exact ties at d1, within and across the
+    64-row tiles); row counts that are no multiple of 64; no reference
+    row at all; no valid reference; one query."""
+    if case == "holes":
+        qry, ref, qv, rv = _masked_2nn_inputs()
+        rv[60:70] = False  # across the first tile edge
+        rv[430:] = False
+        ref[61] = qry[5]   # a masked exact match never wins
+        return qry, ref, qv, rv
+    if case == "dups":
+        return _bidir_inputs("dups")
+    rng = np.random.default_rng(23)
+    nb, na = {"ragged": (131, 201), "no_reference_rows": (70, 0),
+              "no_valid_reference": (70, 130), "one_query": (1, 150)}[case]
+    qry = rng.random((nb, 128), dtype=np.float32)
+    ref = rng.random((na, 128), dtype=np.float32)
+    qv, rv = np.ones(nb, bool), np.ones(na, bool)
+    if case == "ragged":
+        qv[[0, 64, 130]] = False
+        rv[190:] = False
+    elif case == "no_valid_reference":
+        rv[:] = False
+    return qry, ref, qv, rv
+
+
+OCTAVE_SHAPES = {"512x384": [(512, 384), (256, 192), (128, 96), (64, 48)],
+                 "1440x1080": [(1440, 1080), (720, 540), (360, 270),
+                               (180, 135)]}
+
+
+def _octave_dogs(case):
+    """Kernel B1's multi-octave cases (DoG stacks of one call, peak
+    threshold, capacities). ``512x384`` / ``1440x1080``: the four octave
+    shapes of a frame of that size, noise sparse enough to fit the
+    extractor's capacities (area / 128, at least 1024). ``edges``: widths
+    that are no multiple of 32, fewer than three rows, a row of 298 hits
+    (over the per-row cap), a list over its capacity, and a stack without a
+    hit, together in one call."""
+    if case == "edges":
+        dogs, caps = [], []
+        for dog, _, cap in _dog_inputs():  # threshold 1.0 for all
+            dogs.append(dog)
+            caps.append(cap)
+        rng = np.random.default_rng(29)
+        dogs += [rng.normal(size=(5, 2, 40)).astype(np.float32) * 3,
+                 np.zeros((4, 16, 20), np.float32)]
+        caps += [16, 16]
+        return dogs, 1.0, caps
+    rng = np.random.default_rng(19)
+    shapes = OCTAVE_SHAPES[case]
+    dogs = [rng.normal(size=(5, h, w)).astype(np.float32) for h, w in shapes]
+    return dogs, 4.0, [max(1024, min(h * w // 128, 32768)) for h, w in shapes]
+
+
 def _scene(seed=0, h=120, w=200):
     """Noise plus solid discs: enough texture for SIFT and RANSAC."""
     rng = np.random.default_rng(seed)
@@ -291,6 +351,38 @@ def test_kernel_b1_matches_plain(cuda_device, i):
     assert int(ng) == int(nc)
     if i == 4:
         assert int(nc) == 298 and int(vc.sum()) == 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["512x384", "1440x1080", "edges"])
+def test_kernel_b1_octaves_match_plain(cuda_device, case):
+    """B1 over all the DoG stacks of a call in one launch: every octave's
+    coords, valid and n_total exact against the plain version, and the
+    same bits in a second run."""
+    dogs, tp, caps = _octave_dogs(case)
+    g = [T(d).to(cuda_device) for d in dogs]
+    _native.reset_launch_counts()
+    got = detect.detect_compact_octaves(g, tp, caps)
+    again = detect.detect_compact_octaves(g, tp, caps)
+    torch.cuda.synchronize()
+    assert _native.launch_counts()["detect_compact"] == 2
+    kept = []
+    for k, (dog, cap) in enumerate(zip(g, caps)):
+        cp, vp, npl = detect.detect_compact_plain(dog, tp, cap)
+        (ck, vk, nk), (ca, va, na) = got[k], again[k]
+        assert ck.shape == (cap, 3) and ck.dtype == torch.int64
+        assert torch.equal(ck, cp) and torch.equal(vk, vp), (case, k)
+        assert int(nk) == int(npl), (case, k, int(nk), int(npl))
+        assert torch.equal(ck, ca) and torch.equal(vk, va)
+        assert int(nk) == int(na)
+        kept.append((int(vk.sum()), int(nk)))
+    if case == "edges":
+        # capacity 8 binds; the 298-hit row keeps 128; two rows and the
+        # zero stack hold nothing
+        assert kept[3][0] == 8 < kept[3][1]
+        assert kept[4] == (128, 298) and kept[5] == kept[6] == (0, 0)
+    else:
+        assert all(0 < k == n for k, n in kept), kept
 
 
 def _assert_b5_equals_plain_and_b4(desc, valid, pairs, cuda_device):
@@ -465,6 +557,41 @@ def test_kernel_b4_bidir_matches_plain_and_b7(cuda_device, case):
     if case == "dups":
         d1q, d2q, i1q = (t.cpu() for t in got[0])
         assert d1q[63] == d2q[63] == 0 and int(i1q[63]) == 63
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ONE_WAY_CASES)
+def test_kernel_b7_cases_match_plain_and_b4(cuda_device, case):
+    """B7 on the tile pass: d1, d2 and i1 equal to the query side of one
+    B4 launch bit for bit and to a second B7 run; against the plain
+    version d1 / d2 rtol 1e-5 and i1 equal where the 2-NN gap exceeds 1e-4
+    d1; invalid queries, and every query when no reference is valid, get
+    BIG, BIG, 0; a masked row never wins."""
+    qry, ref, qv, rv = _one_way_case(case)
+    g = [T(a).to(cuda_device) for a in (qry, ref, qv, rv)]
+    _native.reset_launch_counts()
+    got = [t.cpu() for t in distance.two_nearest(*g)]
+    again = [t.cpu() for t in distance.two_nearest(*g)]
+    assert _native.launch_counts()["l1_two_nearest"] == 2
+    b4 = [t.cpu() for t in distance.two_nearest_bidir(*g)[0]]
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, b4):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    d1g, d2g, i1g = (t.numpy() for t in got)
+    d1c, d2c, i1c = (t.numpy() for t in distance.two_nearest_plain(
+        *(T(a) for a in (qry, ref, qv, rv))))
+    np.testing.assert_allclose(d1g, d1c, rtol=1e-5)
+    np.testing.assert_allclose(d2g, d2c, rtol=1e-5)
+    clear = qv & ((d2c - d1c) > 1e-4 * d1c)
+    np.testing.assert_array_equal(i1g[clear], i1c[clear])
+    assert (d1g[~qv] > 1e37).all() and (d2g[~qv] > 1e37).all()
+    assert (i1g[~qv] == 0).all()
+    if rv.any():
+        assert rv[i1g[qv]].all(), "a masked row won"
+    else:
+        assert (d1g > 1e37).all() and (i1g == 0).all()
+    if case == "dups":
+        assert d1g[63] == d2g[63] == 0 and i1g[63] == 63
 
 
 @pytest.mark.cuda

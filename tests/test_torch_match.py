@@ -32,6 +32,7 @@ from computervisionimagestich2_tpu_torch.ops import distance as tdist
 from computervisionimagestich2_tpu_torch.ops import rng as trng
 from computervisionimagestich2_tpu_torch.ops import solve as tsolve
 from test_integration import make_scene
+from test_torch_kernels import ONE_WAY_CASES, _one_way_case
 
 T = torch.as_tensor
 CFG = dataclasses.replace(
@@ -177,6 +178,41 @@ def test_tiled_merge_equals_untiled_plain(case):
         ties += int(((d1u == d2u) & ok).sum())
     if case in ("dups", "ints"):
         assert ties > 0  # the case does exercise exact ties
+
+
+@pytest.mark.parametrize("case", ONE_WAY_CASES)
+def test_one_way_tiled_plan_equals_plain_and_jax(case):
+    """Kernel B7's plan in plain PyTorch (each query's partial top-2 over
+    every live 64-reference tile, merged in ascending tile order) equals
+    the untiled ``two_nearest_plain`` bit for bit: d1, d2 and i1 on every
+    row (BIG, BIG, 0 on invalid queries and when no reference is valid).
+    Against the JAX ``two_nearest`` on its exact path: d1 / d2 rtol 1e-5,
+    i1 equal on valid queries."""
+    qry, ref, qv, rv = _one_way_case(case)
+    args = [T(a) for a in (qry, ref, qv, rv)]
+    d1t, d2t, i1t = tdist.two_nearest_tiled_plain(*args)
+    d1u, d2u, i1u = tdist.two_nearest_plain(*args)
+    assert torch.equal(d1t, d1u) and torch.equal(d2t, d2u)
+    assert torch.equal(i1t[args[2]], i1u[args[2]])
+    assert (i1t[~args[2]] == 0).all()
+    assert (d1t[~args[2]] > 1e37).all() and (d2t[~args[2]] > 1e37).all()
+    if case == "dups":
+        assert int(((d1u == d2u) & args[2]).sum()) > 0  # exact ties at d1
+        assert d1t[63] == d2t[63] == 0 and int(i1t[63]) == 63
+    if not rv.any():
+        assert (d1t > 1e37).all() and (i1t == 0).all()
+        return  # no reference to compare on (JAX refuses an empty axis)
+    d1j, d2j, i1j = jdist.two_nearest(
+        *(jnp.asarray(a) for a in (qry, ref, qv, rv)), "l1", "off", "exact")
+    np.testing.assert_allclose(d1t.numpy()[qv], np.asarray(d1j)[qv],
+                               rtol=1e-5)
+    np.testing.assert_allclose(d2t.numpy()[qv], np.asarray(d2j)[qv],
+                               rtol=1e-5)
+    # an exact tie at d1 between two references may break either way under
+    # another summation order only when their sums differ: these are equal
+    # rows, so the lowest index wins in both packages
+    np.testing.assert_array_equal(i1t.numpy()[qv], np.asarray(i1j)[qv])
+    assert rv[i1t.numpy()[qv]].all()
 
 
 def test_merge_top2_plain_ties_and_order():
