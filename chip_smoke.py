@@ -25,13 +25,14 @@ phase with its result and seconds:
    same bits twice; B4 the bits of B7 run each way; B5 the ratio counts of
    B4 on every pair; B1, B2 and B6 are also timed on a call with nothing
    to do (what a launch alone costs), and B6 on the panorama's last and
-   largest canvas;
+   largest canvas, with the coefficients by value and as a tensor;
 4. warm default-path stitches of the same images: each kernel's launch
    count in one run (all six of the path must have launched, B1 once per
-   image, B4 once per edge), the median time of three runs with the stage times, agreement
-   with the CPU run of the port (plain versions), and one
+   image, B4 once per edge), the median time of three runs with the stage
+   times, agreement with the CPU run of the port (plain versions), and one
    ``torch.profiler`` pass of a warm run: device time per kernel and per
-   panorama, all launches, the device's busy and idle share;
+   panorama, all launches and host-to-device copies, the device's busy and
+   idle share; B6 per panorama beside the floor its launches set;
 5. the chain slice (``SLICE_CONFIG``) on the crops in scene order: one cold
    and one warm run, the CPU-canvas check, and no launch of the fused
    detect (B1) or the pair counts (B5);
@@ -43,7 +44,11 @@ phase with its result and seconds:
    size): canvas, discovered edges and start, SIFT and match telemetry,
    cold and warm times, stage times and peak device memory; B1 exactly
    against plain on that size's four octave shapes and B6 on its 1489 x
-   2948 canvas beside its bound; then kernel
+   2948 canvas beside its bound; B6's cases (phase 7a): both warp models,
+   exact against plain and by value equal to the tensor call, on the last
+   canvases of phases 3 and 7 (recorded, and as affine / projective twins
+   timed side by side), a canvas width that is not a multiple of 4, one
+   channel, a 1 x 1 canvas and a horizon crossing the canvas; then kernel
    B5 alone on the features of ten 512x384 frames (45 pairs), of four
    1440x1080 frames, and of ten at the extractor's full capacity (9,728
    slots, so the pairs go in several chunks; not held against plain, which
@@ -70,16 +75,31 @@ phase with its result and seconds:
    register and composite + blend), keyframe switches, the canvas (on the
    bucket grid, at most 4096 wide) and the launches per frame (B5 never);
    at 720p the canvas of the first two frames against the CPU run of the
-   port.
+   port;
+12. ``warp_model="projective"`` (``DEFAULT_CONFIG`` otherwise) on the
+   scrambled crops of phases 3 and 7: the chain, B6's projective branch
+   once per edge and its bilinear one never, no ``match_overflow`` logged,
+   the canvas against the port's CPU run on the features the card dumped
+   (SIFT skipped: the model changes nothing before registration); B6's
+   projective kernels row from the 512x384 run, with its profile;
+13. the rest of A13 at 4 x 512x384, each against the port's CPU run with
+   the same checks: ``sift.o_min=-1`` (a whole CPU run; B1 exact on the
+   doubled octave, B2 and B3 against plain on it; then the features of the
+   four 1440x1080 images, a 2880 x 2160 first octave, with their SIFT
+   telemetry), ``gain_mode="luma"`` with gain compensation, and the Van
+   Vliet blend (both against a CPU run on the card's features; with the
+   time and device launches of one Van Vliet blend beside the FIR one's).
 
-In phases 4, 5 and 8-11 every launch count is set to 0 just before the
-path runs and read just after; each path must launch each of its kernels
-(B7, the one-direction 2-NN, belongs to the matcher API of phase 6 only).
+In phases 4, 5, 8-11 and 12-13 every launch count is set to 0 just before
+the path runs and read just after; each path must launch each of its
+kernels (B7, the one-direction 2-NN, belongs to the matcher API of phase 6
+only, and each path runs one of B6's two branches).
 
 A redesigned kernel is timed beside its earlier design, from an earlier
 commit, by ``computervisionimagestich2_tpu_torch/tools/kernel_ab.py``.
 
-The line before the last is the per-kernel JSON summary (B1-B7), the last
+The line before the last is the per-kernel JSON summary (B1-B7, B6 as its
+two branches), the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
@@ -113,6 +133,8 @@ KERNELS = {
         TPU_OPS + "pallas_distance.py:431"),
     "warp_image": (
         "B6", "cuda", CSRC + "warp.cu", TPU_OPS + "pallas_warp.py:237"),
+    "warp_image_projective": (
+        "B6", "cuda", CSRC + "warp.cu", TPU_OPS + "pallas_warp.py:237"),
     "l1_two_nearest": (
         "B7", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:283"),
 }
@@ -124,9 +146,12 @@ DEVICE_KERNELS = {
     "l1_two_nearest_bidir": ("l1_bidir_tile_kernel", "l1_bidir_merge_kernel"),
     "pair_match_counts": ("pair_plan_kernel", "pair_tile_kernel",
                           "pair_count_kernel"),
-    "warp_image": ("warp_image_kernel",),
+    "warp_image": ("warp_bilinear_kernel",),
+    "warp_image_projective": ("warp_projective_kernel",),
     "l1_two_nearest": ("l1_one_way_tile_kernel", "l1_one_way_merge_kernel"),
 }
+# B6's launch counter for each warp model; a stitch runs one of the two
+B6_BRANCH = {"bilinear": "warp_image", "projective": "warp_image_projective"}
 # device work a launcher starts beside its kernels, by profiler key: B1's
 # cudaMemsetAsync of the scan's status words. Counted where a wrapper is
 # timed alone (``device_ms``); in the profile of a whole stitch other code's
@@ -134,6 +159,11 @@ DEVICE_KERNELS = {
 BESIDE_KERNELS = {"detect_compact": ("Memset",)}
 OFF_MAIN_PATH = {"l1_two_nearest"}  # B7: the matcher API (phase 6) only
 CHAIN_OFF_PATH = OFF_MAIN_PATH | {"detect_compact", "pair_match_counts"}
+
+
+def off_branch(model: str) -> set:
+    """B6's counter of the warp model a path does not run."""
+    return {v for k, v in B6_BRANCH.items() if k != model}
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s,
 # which counts a fused multiply-add as two operations, so 33.5 T of the
@@ -251,7 +281,10 @@ def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
     wrapper ``name`` (``DEVICE_KERNELS`` and ``BESIDE_KERNELS``, or the
     profiler keys ``keys``), from ``torch.profiler`` over ``reps`` calls
     after one warm-up: the device work alone, without the host's gaps
-    between launches. None if the profiler sees no device time."""
+    between launches. The profiler now and then drops part of a short
+    window, so a window counts only if it holds a whole number of matching
+    device events per call, at least one; after three windows without one,
+    None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -259,14 +292,18 @@ def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
         keys = DEVICE_KERNELS[name] + BESIDE_KERNELS.get(name, ())
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in _device_events(prof)
-             if any(k in e.key for k in keys))
-    return us / 1e3 / reps if us else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in _device_events(prof)
+                if any(k in e.key for k in keys)]
+        count = sum(e.count for e in hits)
+        if count >= reps and count % reps == 0:
+            return sum(_dev_us(e) for e in hits) / 1e3 / reps
+    return None
 
 
 def kernel_ms(fn, name: str) -> dict:
@@ -543,11 +580,15 @@ def kernel_bound(name: str, a: tuple) -> dict:
                   for i, j in pairs.tolist())
         return bound(sum(live) * 128 * 4 + _nbytes(valid, pairs)
                      + pairs.shape[0] * 8, ops)
-    if name == "warp_image":  # src, coeffs, min_x, min_y, (h_out, w_out)
+    if name in B6_BRANCH.values():  # src, coeffs, ox, oy, (h, w), model
         src, (ho, wo) = a[0], a[4]
+        model = a[5] if len(a) > 5 else "bilinear"
         c = src.shape[2] if src.dim() == 3 else 1
-        # bilinear model, truncation and bounds test per output pixel
-        return bound(_nbytes(src) + 40 + ho * wo * c * 4, 20 * ho * wo)
+        # per canvas pixel: the offsets (2), the model (bilinear 14;
+        # projective 21 with its guard and two divisions), truncation (2)
+        # and the bounds test (4); the 48 bytes of parameters by value
+        ops = (22 if model == "bilinear" else 29) * ho * wo
+        return bound(_nbytes(src) + 48 + ho * wo * c * 4, ops)
     raise KeyError(name)
 
 
@@ -600,19 +641,103 @@ def check_b1(a: tuple) -> dict:
             "capacities": list(caps), "candidates": kept, "n_total": totals}
 
 
-def b6_at(a: tuple) -> dict:
-    """Kernel B6 on the arguments of one call: exact against plain, its
-    device time beside its bound."""
+def b6_plain(src, coeffs, ox, oy, canvas, model="bilinear"):
+    """B6's plain version on the arguments of a call (host coefficients
+    become a tensor on the source's device)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.ops import warp
 
-    assert torch.equal(warp.warp_image(*a), warp.warp_image_plain(*a)), \
-        "B6 must be exact"
-    row = {"src": list(a[0].shape), "canvas": list(a[4]),
-           **kernel_ms(lambda: warp.warp_image(*a), "warp_image"),
-           **kernel_bound("warp_image", a)}
+    c = torch.as_tensor(np.asarray(coeffs, np.float32), device=src.device)
+    return warp.warp_image_plain(src, c, ox, oy, canvas, model)
+
+
+def b6_at(a: tuple) -> dict:
+    """Kernel B6 on the arguments ``a`` (src, coeffs, ox, oy, canvas,
+    model) of one call: exact against plain, the coefficients by value and
+    as a device tensor giving the same canvas; its device time beside its
+    bound."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import warp
+
+    got = warp.warp_image(*a)
+    as_tensor = warp.warp_image(a[0], torch.as_tensor(
+        np.asarray(a[1], np.float32), device=a[0].device), *a[2:])
+    assert torch.equal(got, b6_plain(*a)), ("B6 must be exact", a[4], a[5])
+    assert torch.equal(as_tensor, got), "B6: tensor and by-value differ"
+    name = B6_BRANCH[a[5]]
+    row = {"model": a[5], "src": list(a[0].shape), "canvas": list(a[4]),
+           "covered_share": float((got != 0).any(dim=2).float().mean()),
+           **kernel_ms(lambda: warp.warp_image(*a), name),
+           **kernel_bound(name, a)}
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+# a homography whose denominator 1 - x / 500 crosses 0 inside a canvas
+# wider than 500 px: the canvas holds finite, infinite and NaN source
+# coordinates, and only the finite in-bounds ones may gather
+B6_HORIZON = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0, -0.002, 0.0, 1.0]
+
+
+def b6_twins(a: tuple) -> tuple:
+    """An affine bilinear call and its projective twin from a recorded
+    bilinear call ``a``: the xy terms dropped, the same map written as a
+    homography, so both branches move the same bytes on the same canvas."""
+    c = [float(v) for v in a[1]]
+    affine = [c[0], c[1], 0.0, c[3], c[4], c[5], 0.0, c[7]]
+    homography = [c[0], c[1], c[3], c[4], c[5], c[7], 0.0, 0.0, 1.0]
+    return ((a[0], affine, *a[2:5], "bilinear"),
+            (a[0], homography, *a[2:5], "projective"))
+
+
+def b6_checks(main_last: tuple, big_last: tuple) -> dict:
+    """B6's cases on the card, both models, each exact against plain and
+    by value equal to the tensor call (``b6_at``): the main path's last
+    canvas (530 x 1046 at 4 x 512x384) and the 1440x1080 path's (1489 x
+    2948) as recorded and as affine / projective twins, timed side by side
+    (the projective branch's cost over the bilinear one's on the same
+    canvas and bytes); a canvas width that is not a multiple of 4, one
+    channel, a 1 x 1 canvas, and a horizon crossing the canvas."""
+    rows = {}
+    for label, a in (("main_last", main_last), ("at_1440x1080_last", big_last)):
+        bil, proj = b6_twins(a)
+        rows[f"{label}_recorded"] = b6_at(a)
+        rows[f"{label}_affine"] = b6_at(bil)
+        rows[f"{label}_projective"] = b6_at(proj)
+        rows[f"{label}_projective_over_bilinear"] = (
+            rows[f"{label}_projective"]["ms"] / rows[f"{label}_affine"]["ms"])
+    src, (h, w) = main_last[0], main_last[4]
+    bil, proj = b6_twins(main_last)
+    for model, a in (("bilinear", bil), ("projective", proj)):
+        rows[f"{model}_w_not_4"] = b6_at((*a[:4], (h, 4 * (w // 4) - 3),
+                                          model))
+        rows[f"{model}_c1"] = b6_at((src[..., :1].contiguous(), *a[1:]))
+        rows[f"{model}_1x1"] = b6_at((*a[:4], (1, 1), model))
+    rows["projective_horizon"] = b6_at(
+        (src, B6_HORIZON, 0.0, 0.0, (h, w), "projective"))
+    assert 0 < rows["projective_horizon"]["covered_share"] < 0.5, rows
+    assert rows["projective_w_not_4"]["canvas"][1] % 4, rows
+    return rows
+
+
+def kernel_row(name: str, calls: list, err, kern, plain, library=None,
+               **extra) -> dict:
+    """The kernels-line row of wrapper ``name``: its error against plain,
+    the times of the kernel, of its plain version and of the library call
+    (where one exists) on the first recorded call, that call's bound and
+    the panorama's (``calls``: every call of one stitch). Printed as a
+    ``kernel_check`` line."""
+    kid, route, source, replaces = KERNELS[name]
+    row = {"name": name, "id": kid, "route": route, "source": source,
+           "replaces": replaces, "max_abs_err": float(err),
+           **kernel_ms(kern, name), "plain_ms": cuda_ms(plain),
+           "library_ms": cuda_ms(library) if library else None,
+           **kernel_bound(name, calls[0]), **panorama_bound(name, calls),
+           "calls_per_panorama": len(calls), **extra}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    print(json.dumps({"kernel_check": row}), flush=True)
     return row
 
 
@@ -635,17 +760,8 @@ def check_kernels(rec: Recorder) -> list[dict]:
     rows = []
 
     def add(name, err, kern, plain, library=None, **extra):
-        kid, route, source, replaces = KERNELS[name]
-        rows.append({"name": name, "id": kid, "route": route,
-                     "source": source, "replaces": replaces,
-                     "max_abs_err": float(err), **kernel_ms(kern, name),
-                     "plain_ms": cuda_ms(plain),
-                     "library_ms": cuda_ms(library) if library else None,
-                     **kernel_bound(name, args[name]),
-                     **panorama_bound(name, rec.calls[name]),
-                     "calls_per_panorama": len(rec.calls[name]), **extra})
-        rows[-1]["share_of_bound"] = rows[-1]["bound_ms"] / rows[-1]["ms"]
-        print(json.dumps({"kernel_check": rows[-1]}), flush=True)
+        rows.append(kernel_row(name, rec.calls[name], err, kern, plain,
+                               library, **extra))
 
     no_library = "no PyTorch call computes it"
     a = args["detect_compact"]
@@ -754,24 +870,55 @@ def check_kernels(rec: Recorder) -> list[dict]:
         equals_b4_counts=True)
 
     a = args["warp_image"]
-    wk = warp.warp_image(*a)
-    wp = warp.warp_image_plain(*a)
-    assert torch.equal(wk, wp), "B6 must be exact"
-    last = rec.calls["warp_image"][-1]  # the panorama's full canvas
-    add("warp_image", (wk - wp).abs().max(),
-        lambda: warp.warp_image(*a), lambda: warp.warp_image_plain(*a),
-        library_note=no_library, canvas=list(a[4]),
-        at_last_canvas=b6_at(last),
-        launch_alone_ms=device_ms(
-            lambda: warp.warp_image(*last[:4], (1, 1)), "warp_image"),
-        launch_alone="the last call's arguments with a 1 x 1 canvas")
+    assert a[5] == "bilinear", a[5]
+    add("warp_image", b6_err(a), lambda: warp.warp_image(*a),
+        lambda: b6_plain(*a), **b6_extra(rec.calls["warp_image"]))
     return rows
+
+
+def b6_launch_floor(row: dict) -> dict:
+    """B6 per panorama beside the floor its launches set: ``launches``
+    times the device time of a launch alone, and the share of the bound
+    the panorama could reach at that launch count, bound / (bound +
+    floor)."""
+    floor = row["launches_per_panorama"] * row["launch_alone_ms"]
+    bound_ms = row["bound_ms_per_panorama"]
+    return {"launch_floor_ms_per_panorama": floor,
+            "share_ceiling_at_this_launch_count": bound_ms / (bound_ms + floor)}
+
+
+def b6_err(a: tuple) -> float:
+    """B6 against its plain version on one call: exact, or it raises."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import warp
+
+    wk, wp = warp.warp_image(*a), b6_plain(*a)
+    assert torch.equal(wk, wp), "B6 must be exact"
+    return float((wk - wp).abs().max())
+
+
+def b6_extra(calls: list) -> dict:
+    """The fields of B6's kernels row beside its first call's: the
+    panorama's last (largest) canvas (``b6_at``), and the device time of a
+    launch on a 1 x 1 canvas (what a launch alone costs)."""
+    from computervisionimagestich2_tpu_torch.ops import warp
+
+    last = calls[-1]
+    return {"library_note": "no PyTorch call computes it",
+            "model": last[5], "canvas": list(calls[0][4]),
+            "at_last_canvas": b6_at(last),
+            "launch_alone_ms": device_ms(
+                lambda: warp.warp_image(*last[:4], (1, 1), last[5]),
+                B6_BRANCH[last[5]]),
+            "launch_alone": "the last call's arguments with a 1 x 1 canvas"}
 
 
 def profile_run(stitcher, images) -> dict:
     """One warm stitch under ``torch.profiler``: device time and launches
-    per kernel of the port (by ``DEVICE_KERNELS``), all device kernels,
-    the device's busy time (kernels and copies) against the wall."""
+    per kernel of the port (by ``DEVICE_KERNELS``), all device kernels and
+    the host-to-device copies among them, the device's busy time (kernels
+    and copies) against the wall."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -789,11 +936,13 @@ def profile_run(stitcher, images) -> dict:
     out = {"wall_s": wall, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
            "device_events": sum(e.count for e in dev),
+           "memcpy_htod_events": sum(e.count for e in dev if "HtoD" in e.key),
            "top": sorted(((e.key[:80], _dev_us(e) / 1e3, e.count)
                           for e in dev), key=lambda x: -x[1])[:12],
            "kernels": per}
+    off = OFF_MAIN_PATH | off_branch(stitcher.config.warp_model)
     assert busy_ms > 0 and all(per[n]["ms"] > 0 for n in per
-                               if n not in OFF_MAIN_PATH), out
+                               if n not in off), out
     return out
 
 
@@ -879,11 +1028,13 @@ def run(stitcher, images, **kw):
     return out, time.perf_counter() - t
 
 
-def check_launches(launches: dict, off_path=(), b4=None) -> dict:
+def check_launches(launches: dict, off_path=(), b4=None,
+                   model: str = "bilinear") -> dict:
     """Every kernel of the path launched; none off it (B7 is off every
-    stitch path); with ``b4``, B4 launched that many times (once per edge,
-    and once per image pair where B4 gives the graph counts)."""
-    off_path = set(off_path) | OFF_MAIN_PATH
+    stitch path, and B6's branch of the other warp model); with ``b4``,
+    B4 launched that many times (once per edge, and once per image pair
+    where B4 gives the graph counts)."""
+    off_path = set(off_path) | OFF_MAIN_PATH | off_branch(model)
     wrong = {n: c for n, c in launches.items()
              if (c == 0) != (n in off_path)}
     assert not wrong, f"launches {launches}, off the path: {sorted(off_path)}"
@@ -1034,6 +1185,134 @@ def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
     return rep
 
 
+def stitch_phase(images, config, cpu: str = "full", record=()) -> tuple:
+    """One configuration's stitch of scrambled crops on the card: graph
+    discovery finds the scene's chain; a cold run (recording the calls of
+    the wrappers ``record``, the SIFT telemetry and the last blend's
+    arguments) and a warm run with its launch counts (every kernel of the
+    path, B4 and B6's branch of ``config.warp_model`` once per edge); no
+    ``match_overflow`` is logged; the canvas against the port's CPU run
+    (``cpu="full"``: from the images; ``"resumed"``: on the features the
+    card's run dumped, SIFT skipped). Returns (report, recorder, stitcher,
+    the last blend's arguments)."""
+    import shutil
+    import tempfile
+
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+    from computervisionimagestich2_tpu_torch.utils import obs
+
+    warned, blends, sift_dropped = [], [], []
+    warn, blend, sift = obs.warn, stm.blend_edge, stm.sift_extract_stats
+
+    def warn_rec(stage, **kv):
+        warned.append(stage)
+        warn(stage, **kv)
+
+    def blend_rec(*a):
+        blends.append(a)
+        return blend(*a)
+
+    def sift_rec(*a):
+        f, st = sift(*a)
+        sift_dropped.append(st.tolist())
+        return f, st
+
+    rep = {}
+    with tempfile.TemporaryDirectory() as d:
+        art = f"{d}/card" if cpu == "resumed" else None
+        st = stm.Stitcher(config, device="cuda", artifact_dir=art)
+        seen = record_ordering(st)
+        obs.warn, stm.blend_edge, stm.sift_extract_stats = (
+            warn_rec, blend_rec, sift_rec)
+        try:
+            with Recorder(record) as rec:
+                _, rep["cold_s"] = run(st, images)
+            rep["stage_s_cold"] = dict(st.stage_times)
+            out, rep["warm_s"], launches = counted_run(st, images)
+        finally:
+            obs.warn, stm.blend_edge, stm.sift_extract_stats = (
+                warn, blend, sift)
+        rep["edges"], rep["start"] = check_chain(seen), seen["start"]
+        n_edges = len(rep["edges"])
+        check_launches(launches, b4=n_edges, model=config.warp_model)
+        assert launches[B6_BRANCH[config.warp_model]] == n_edges, launches
+        assert "match_overflow" not in warned, warned
+        t = time.perf_counter()
+        if cpu == "resumed":
+            shutil.copytree(f"{d}/card", f"{d}/cpu")
+            st_cpu = stm.Stitcher(config, device="cpu",
+                                  artifact_dir=f"{d}/cpu")
+            st_cpu.prepare = None  # a resume must not run SIFT
+            out_cpu = st_cpu.stitch(images, resume=True)
+        else:
+            out_cpu = stm.Stitcher(config, device="cpu").stitch(images)
+        rep["cpu_s"] = time.perf_counter() - t
+    rep.update(canvas=list(out.shape), cpu_canvas=list(out_cpu.shape),
+               cpu_run=cpu, mad_vs_cpu=canvas_vs_cpu(out, out_cpu),
+               stage_s_warm=dict(st.stage_times), launches=launches,
+               warnings=sorted(set(warned)),
+               sift_dropped=sift_dropped[:len(images)])
+    assert out.mean() > 20, "empty canvas"
+    return rep, rec, st, blends[-1]
+
+
+def check_walks(rec: "Recorder") -> dict:
+    """B1 exact on every octave of the first recorded call (``check_b1``),
+    and B2 (rtol 1e-5, atol 1e-5 x max) and B3 (atol 2e-6) against their
+    plain versions on the first recorded call (the first octave's first
+    level), as ``check_kernels`` holds them."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import sift_walks
+
+    rep = {"detect_compact": check_b1(rec.args["detect_compact"])}
+    a = rec.args["sift_orientation_hist"]
+    hk, okk = sift_walks.orientation_hist(*a)
+    hp, okp = sift_walks.orientation_hist_plain(*a)
+    torch.testing.assert_close(hk, hp, rtol=1e-5,
+                               atol=1e-5 * float(hp.abs().max()))
+    assert torch.equal(okk, okp)
+    a = rec.args["sift_descriptors"]
+    dk, okk = sift_walks.descriptors(*a)
+    dp, okp = sift_walks.descriptors_plain(*a)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=2e-6)
+    assert torch.equal(okk, okp)
+    rep["walks"] = {"hist_max_abs_err": float((hk - hp).abs().max()),
+                    "desc_max_abs_err": float((dk - dp).abs().max()),
+                    "radius_hist": rec.args["sift_orientation_hist"][6],
+                    "radius_desc": a[7],
+                    "mod_shape": list(a[0].shape)}
+    return rep
+
+
+def blend_cost(args: tuple) -> dict:
+    """One blend (``blend_edge``) on the card on recorded arguments: its
+    time between CUDA events, its device kernels per call from
+    ``torch.profiler``, and the same for the FIR blur on the same
+    canvases."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from computervisionimagestich2_tpu_torch.models.blender import blend_edge
+
+    a, b, bcfg = args[:3]
+    out = {"canvas": list(a.shape)}
+    for impl in ("vanvliet", "fir"):
+        cfg = dataclasses.replace(bcfg, blur_impl=impl)
+        fn = (lambda c=cfg: blend_edge(a, b, c, *args[3:]))
+        ms = cuda_ms(fn, reps=3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = _device_events(prof)
+        out[impl] = {"ms": ms, "device_launches": sum(e.count for e in dev),
+                     "device_ms": sum(_dev_us(e) for e in dev) / 1e3}
+    return out
+
+
 MIXED_SHAPES = [(512, 384), (500, 384), (512, 360), (480, 384)]
 
 
@@ -1177,6 +1456,7 @@ def main() -> int:
          edges=edges, start=seen["start"], canvas=list(out_cold.shape))
     t = time.perf_counter()
     kernels = check_kernels(rec)
+    main_last = rec.calls["warp_image"][-1]  # the panorama's full canvas
     del rec
     emit("kernels_vs_plain", t, checked=[k["name"] for k in kernels])
 
@@ -1206,6 +1486,8 @@ def main() -> int:
         k["share_of_bound_per_panorama"] = (
             k["bound_ms_per_panorama"] / k["device_ms_per_panorama"]
             if k["device_ms_per_panorama"] else None)
+    b6 = next(k for k in kernels if k["name"] == "warp_image")
+    b6.update(b6_launch_floor(b6))
     emit("default_512x384_profile", t, **prof)
     feats = st._matching_feats()
 
@@ -1234,7 +1516,7 @@ def main() -> int:
 
     # -- 7. north-star size 4 x 1440x1080, scrambled, default path
     t = time.perf_counter()
-    images = scrambled(crops(1440, 1080, 630, 6, seed=1))
+    images = images_big = scrambled(crops(1440, 1080, 630, 6, seed=1))
     telemetry = {}
     sift_fn, plan_fn = stm.sift_extract_stats, stm.plan_edges
 
@@ -1265,8 +1547,8 @@ def main() -> int:
                     "detect_compact")}
     b1["at_1440x1080"]["share_of_bound"] = (
         b1["at_1440x1080"]["bound_ms"] / b1["at_1440x1080"]["ms"])
-    b6 = next(k for k in kernels if k["name"] == "warp_image")
-    b6["at_1440x1080_last_canvas"] = b6_at(rec.calls["warp_image"][-1])
+    big_last = rec.calls["warp_image"][-1]
+    b6["at_1440x1080_last_canvas"] = b6_at(big_last)
     assert b6["at_1440x1080_last_canvas"]["canvas"] == list(
         out_big.shape[:2]), b6["at_1440x1080_last_canvas"]
     del rec, a  # the recorded stacks must not count in the peak below
@@ -1290,6 +1572,11 @@ def main() -> int:
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          detect_compact=b1["at_1440x1080"],
          warp_image=b6["at_1440x1080_last_canvas"])
+
+    # -- 7a. B6's cases, both models, on the canvases of phases 3 and 7
+    t = time.perf_counter()
+    b6["cases"] = b6_checks(main_last, big_last)
+    emit("warp_cases", t, **b6["cases"])
 
     # -- 7b. B5 at ten frames and at the north-star size
     t = time.perf_counter()
@@ -1323,6 +1610,82 @@ def main() -> int:
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         emit(label, t, **stream_phase(DEFAULT_CONFIG, *size))
+
+    # -- 12. warp_model="projective" at 4 x 512x384 and 4 x 1440x1080
+    import dataclasses
+
+    from computervisionimagestich2_tpu_torch.ops import warp
+
+    proj = dataclasses.replace(DEFAULT_CONFIG, warp_model="projective")
+    t = time.perf_counter()
+    rep, rec, st_proj, _ = stitch_phase(images_512, proj, cpu="resumed",
+                                        record=("warp_image",))
+    calls = rec.calls["warp_image"]
+    a = calls[0]
+    row = kernel_row("warp_image_projective", calls, b6_err(a),
+                     lambda: warp.warp_image(*a), lambda: b6_plain(*a),
+                     **b6_extra(calls))
+    prof = profile_run(st_proj, images_512)
+    row["launches"] = row["launches_per_panorama"] = rep["launches"][
+        "warp_image_projective"]
+    row["device_ms_per_panorama"] = prof["kernels"][
+        "warp_image_projective"]["ms"]
+    row["share_of_bound_per_panorama"] = (
+        row["bound_ms_per_panorama"] / row["device_ms_per_panorama"])
+    row.update(b6_launch_floor(row))
+    kernels.insert([k["name"] for k in kernels].index("warp_image") + 1, row)
+    emit("projective_512x384", t, **rep, profile=prof)
+    del rec, calls, a
+    t = time.perf_counter()
+    rep, rec, _, _ = stitch_phase(images_big, proj, cpu="resumed",
+                                  record=("warp_image",))
+    row["at_1440x1080_last_canvas"] = b6_at(rec.calls["warp_image"][-1])
+    del rec
+    emit("projective_1440x1080", t, **rep,
+         warp_image_projective=row["at_1440x1080_last_canvas"])
+
+    # -- 13. the rest of A13 at 4 x 512x384: o_min=-1, luma gain, Van Vliet
+    t = time.perf_counter()
+    omin = dataclasses.replace(DEFAULT_CONFIG, sift=dataclasses.replace(
+        DEFAULT_CONFIG.sift, o_min=-1))
+    rep, rec, _, _ = stitch_phase(images_512, omin, record=(
+        "detect_compact", "sift_orientation_hist", "sift_descriptors"))
+    rep["kernels_vs_plain"] = check_walks(rec)
+    del rec
+    emit("o_min_-1_512x384", t, **rep)
+    t = time.perf_counter()
+    st = stm.Stitcher(omin, device="cuda")
+    sift_fn, dropped = stm.sift_extract_stats, []
+
+    def sift_rec(*a):
+        f, s = sift_fn(*a)
+        dropped.append(s.tolist())
+        return f, s
+
+    stm.sift_extract_stats = sift_rec
+    try:
+        with Recorder(("detect_compact",)) as rec:
+            st.prepare(images_big)
+            torch.cuda.synchronize()
+    finally:
+        stm.sift_extract_stats = sift_fn
+    prep_s = time.perf_counter() - t
+    emit("o_min_-1_1440x1080_features", t, prepare_s=prep_s,
+         sift_dropped=dropped, first_octave=list(
+             rec.args["detect_compact"][0][0].shape[1:]),
+         detect_compact=check_b1(rec.args["detect_compact"]),
+         live_features=st._feats_stacked.valid.sum(dim=1).tolist())
+    del rec, st
+    t = time.perf_counter()
+    luma = dataclasses.replace(DEFAULT_CONFIG, blend=dataclasses.replace(
+        DEFAULT_CONFIG.blend, gain_compensation=True, gain_mode="luma"))
+    rep, _, _, _ = stitch_phase(images_512, luma, cpu="resumed")
+    emit("luma_gain_512x384", t, **rep)
+    t = time.perf_counter()
+    vv = dataclasses.replace(DEFAULT_CONFIG, blend=dataclasses.replace(
+        DEFAULT_CONFIG.blend, blur_impl="vanvliet"))
+    rep, _, _, last_blend = stitch_phase(images_512, vv, cpu="resumed")
+    emit("vanvliet_512x384", t, **rep, one_blend=blend_cost(last_blend))
 
     assert len(kernels) == len(KERNELS), [k["name"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)

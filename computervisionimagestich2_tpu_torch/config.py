@@ -19,10 +19,13 @@ values the port runs.
 The port runs ``DEFAULT_CONFIG`` (graph ordering, the fused detect, exact
 L1 matching) and ``SLICE_CONFIG``, the chain-ordered path with the dense
 (non-fused) detect that was ported first, each with the incremental stitch
-(``planned=False``), bucketed canvases (``exact_canvas=False``) and the
-per-edge color transfer (``color_transfer=True``). ``check_supported``
-raises ``NotImplementedError`` for any switch outside them, naming the
-ROADMAP item that ports it.
+(``planned=False``), bucketed canvases (``exact_canvas=False``), the
+per-edge color transfer (``color_transfer=True``), projective warps
+(``warp_model="projective"``), an upsampled first octave
+(``sift.o_min=-1``), the scalar luma gain (``blend.gain_mode="luma"``) and
+the Van Vliet blend blur (``blend.blur_impl="vanvliet"``).
+``check_supported`` raises ``NotImplementedError`` for any switch outside
+them, naming the ROADMAP item that ports it.
 
 ``match.method="auto"`` resolves to exact L1 here. That is what the JAX
 package itself picks on any backend other than a TPU
@@ -160,7 +163,7 @@ class BlendConfig:
     blur_sigma: float = 2.0       # get_blur(2,...), ImageProcess.cpp:709
     # "fir": separable FIR Gaussian; "vanvliet": CImg's exact recursive
     # filter with Triggs boundaries (get_blur(2,true,true)), the parity
-    # mode (not ported, A13).
+    # mode; "fir_fused": a TPU-only fused blur-and-shrink, not ported.
     blur_impl: str = "fir"
     # root variant: levels = floor(log2(max(w,h))) (ImageProcess.cpp:675-676)
     # ex6 variant:  levels = floor(log2(min(w,h))) (src/ex6/ImageProcess.cpp:662-665)
@@ -210,7 +213,7 @@ class StitchConfig:
     blend: BlendConfig = dataclasses.field(default_factory=BlendConfig)
     enhance: EnhanceConfig = dataclasses.field(default_factory=EnhanceConfig)
     # "bilinear" = the reference's 8-coefficient warp (ImageProcess.h:58-73);
-    # "projective" = true DLT homography (not ported, A13).
+    # "projective" = true DLT homography.
     warp_model: str = "bilinear"
     # "graph" = root variant's match-graph discovery over unordered images
     # (ImageProcess.cpp:101-147); "chain" = ex6's pre-ordered left-to-right
@@ -255,12 +258,8 @@ def check_supported(cfg: StitchConfig) -> None:
     unsupported = [
         (cfg.match.method == "l2pre", "match.method='l2pre'", "A14"),
         (cfg.match.distance != "l1", "match.distance='l2'", "A14"),
-        (cfg.warp_model != "bilinear", "warp_model='projective'", "A13"),
-        (cfg.blend.blur_impl != "fir", f"blend.blur_impl="
-         f"{cfg.blend.blur_impl!r}", "A13 (vanvliet); fir_fused is TPU-only"),
-        (cfg.sift.o_min < 0, "sift.o_min<0", "A13"),
-        (cfg.blend.gain_compensation and cfg.blend.gain_mode == "luma",
-         "blend.gain_mode='luma' with gain_compensation", "A13"),
+        (cfg.blend.blur_impl == "fir_fused", "blend.blur_impl='fir_fused'",
+         "§A 'Do not port' (a TPU-only fused blur)"),
         (cfg.sift.walk_dtype != "f32", "sift.walk_dtype='bf16'",
          "§A 'Do not port' (a TPU-only experiment)"),
     ]

@@ -82,11 +82,19 @@ cudaError_t cvs_pair_match_counts(const float* desc,
                                   int* tile_start, float* part, int* out,
                                   cudaStream_t stream);
 
-// B6: inverse warp of src [src_h, src_w, channels] onto out
-// [h_out, w_out, channels]; params: [10] = 8 bilinear coefficients,
-// offset_x, offset_y.
+// B6: inverse warp of src [src_h, src_w, channels] (at least one pixel)
+// onto out [h_out, w_out, channels], with the parameters by value: the
+// backward model's coefficients (8 bilinear ones, c[8] unused, or the
+// row-major 3x3 homography), the canvas offset added to each pixel's
+// (x, y), and the model. cudaErrorInvalidValue for an unknown model.
+enum { CVS_WARP_BILINEAR = 0, CVS_WARP_PROJECTIVE = 1 };
+typedef struct {
+  float c[9];
+  float ox, oy;
+  int model;
+} CvsWarpParams;
 cudaError_t cvs_warp_image(const float* src, int src_h, int src_w,
-                           int channels, const float* params, int h_out,
+                           int channels, CvsWarpParams params, int h_out,
                            int w_out, float* out, cudaStream_t stream);
 
 #ifdef __cplusplus

@@ -2,8 +2,10 @@
 ``computervisionimagestich2_tpu.models.blender``).
 
 blendTwoImages (ImageProcess.cpp:648-773): a vertical half-plane seam mask
-from the mid-row overlap centroid, Gaussian pyramids (FIR blur sigma 2 +
-CImg half resize) of the stacked [a | b | mask] canvas, per-level
+from the mid-row overlap centroid, Gaussian pyramids (blur sigma 2 + CImg
+half resize; the blur is the FIR Gaussian, or CImg's own recursive Van
+Vliet filter with ``blur_impl="vanvliet"``) of the stacked [a | b | mask]
+canvas, per-level
 Laplacian masked lerp, and top-down reconstruction clamped to [0, 255].
 
 The JAX package's default area gates are ported because they change the
@@ -17,14 +19,21 @@ import math
 
 import torch
 
-from ..ops.gaussian import _conv1d_axis, gauss_taps
+from ..ops.gaussian import _conv1d_axis, gauss_taps, vanvliet_blur
 from ..ops.resize import cimg_resize
 
 AUTO_BF16_AREA = 1_500_000
 
 
-def _blur_hwc(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """FIR blur of [H, W, C] along W then H (the gaussian_blur order)."""
+def _blur_hwc(img: torch.Tensor, sigma: float,
+              impl: str = "fir") -> torch.Tensor:
+    """Blur [H, W, C] along W then H: the FIR Gaussian (the gaussian_blur
+    order), or with ``impl="vanvliet"`` CImg's recursive Van Vliet filter
+    (get_blur(2, true, true), ImageProcess.cpp:709)."""
+    if impl == "vanvliet":
+        return vanvliet_blur(img.movedim(-1, 0), sigma).movedim(0, -1)
+    if impl != "fir":
+        raise ValueError(f"unknown blur_impl {impl!r}")
     taps = gauss_taps(sigma)
     return _conv1d_axis(_conv1d_axis(img, taps, 1), taps, 0)
 
@@ -66,12 +75,14 @@ def half_plane_mask(a: torch.Tensor, b: torch.Tensor,
 
 
 def blend_stacked(s0: torch.Tensor, levels: int, blur_sigma: float = 2.0,
-                  dtype: str = "f32") -> torch.Tensor:
+                  dtype: str = "f32", blur_impl: str = "fir") -> torch.Tensor:
     """Pyramid blend of a stacked [H, W, 7] canvas (a | b | mask):
     downsweep (blur + halve), per-level Laplacian masked lerp, top-down
-    reconstruction with clamping. dtype="bf16" runs the chain in
-    bfloat16."""
+    reconstruction with clamping. dtype="bf16" runs the chain in bfloat16,
+    with the FIR blur only (as in the JAX package)."""
     if dtype == "bf16":
+        if blur_impl != "fir":
+            raise ValueError("dtype='bf16' supports blur_impl='fir' only")
         s0 = s0.to(torch.bfloat16)
     elif dtype != "f32":
         raise ValueError(f"unknown blend dtype {dtype!r}")
@@ -79,7 +90,8 @@ def blend_stacked(s0: torch.Tensor, levels: int, blur_sigma: float = 2.0,
     for _ in range(1, levels):
         hp = max(s_pyr[-1].shape[0] // 2, 1)
         wp = max(s_pyr[-1].shape[1] // 2, 1)
-        s_pyr.append(cimg_resize(_blur_hwc(s_pyr[-1], blur_sigma), hp, wp))
+        s_pyr.append(cimg_resize(_blur_hwc(s_pyr[-1], blur_sigma, blur_impl),
+                                 hp, wp))
 
     blend_pyr = []
     for i in range(levels):
@@ -122,7 +134,8 @@ def apply_composite_gain(a: torch.Tensor, b: torch.Tensor, bcfg,
 def blend_two_images(a: torch.Tensor, b: torch.Tensor,
                      level_mode: str = "max", blur_sigma: float = 2.0,
                      content_h: int | None = None,
-                     dtype: str = "f32") -> torch.Tensor:
+                     dtype: str = "f32",
+                     blur_impl: str = "fir") -> torch.Tensor:
     """Blend canvas a (the new warped image) over b (the previous result).
     Returns the blended float canvas (the caller truncates to u8)."""
     h, w = a.shape[0], a.shape[1]
@@ -130,13 +143,14 @@ def blend_two_images(a: torch.Tensor, b: torch.Tensor,
     levels = n_levels(h, w, level_mode)
     mask0 = half_plane_mask(a, b, content_h)
     s0 = torch.cat([a, b, mask0[..., None]], dim=-1)
-    return blend_stacked(s0, levels, blur_sigma, dtype)
+    return blend_stacked(s0, levels, blur_sigma, dtype, blur_impl)
 
 
 def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
                     level_mode: str = "max", blur_sigma: float = 2.0,
                     content_h: int | None = None,
-                    dtype: str = "f32") -> torch.Tensor:
+                    dtype: str = "f32",
+                    blur_impl: str = "fir") -> torch.Tensor:
     """Seam-band multi-band blend: pyramid-blend only a [H, 4*band] window
     centred on the half-plane seam and copy a / b elsewhere; only the
     central 2*band columns of the window are pasted back. Canvases
@@ -148,7 +162,7 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
     wb = 4 * band
     if wb > w:
         return blend_two_images(a, b, level_mode, blur_sigma, content_h,
-                                dtype)
+                                dtype, blur_impl)
     dtype = resolve_dtype(dtype, h, wb)
     mask0 = half_plane_mask(a, b, content_h)
     mask_row = mask0[0]
@@ -158,7 +172,7 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
     win = stacked[:, s:s + wb]
     levels = max(1, min(n_levels(h, wb, level_mode),
                         int(math.log2(max(band // 8, 2)))))
-    blended_win = blend_stacked(win, levels, blur_sigma, dtype)
+    blended_win = blend_stacked(win, levels, blur_sigma, dtype, blur_impl)
     out = torch.where(mask0[..., None] == 1.0, a, b)
     out[:, s + band:s + 3 * band] = blended_win[:, band:3 * band]
     return out
@@ -182,6 +196,7 @@ def blend_edge(a: torch.Tensor, b: torch.Tensor, bcfg,
                 and resolve_dtype("auto", h, w, thr) == "bf16"):
             dt = "bf16"
         return blend_seam_band(a, b, band, bcfg.level_mode, bcfg.blur_sigma,
-                               content_h, dt)
+                               content_h, dt, bcfg.blur_impl)
     return blend_two_images(a, b, bcfg.level_mode, bcfg.blur_sigma,
-                            content_h, resolve_dtype(bcfg.dtype, h, w, thr))
+                            content_h, resolve_dtype(bcfg.dtype, h, w, thr),
+                            bcfg.blur_impl)

@@ -5,9 +5,11 @@ ImageProcess::RANSAC (ImageProcess.cpp:395-436) with all K hypotheses as
 one batch: K 4-point solves, one [K, N] reprojection / inlier count
 (threshold 4 px over all pairs), the best hypothesis, a warm-started
 least-squares refit on its inliers (ImageProcess.cpp:500-529), and
-``lo_iters`` rounds of local optimisation. The draws come from the ported
-threefry (ops/rng.py), so hypotheses equal the JAX package's. Everything
-stays on the device; nothing synchronises with the host.
+``lo_iters`` rounds of local optimisation. ``model="projective"`` solves
+homographies instead (``solve_projective``) and refits them cold on the
+inliers, as the JAX package does. The draws come from the ported threefry
+(ops/rng.py), so hypotheses equal the JAX package's. Everything stays on
+the device; nothing synchronises with the host.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from ..core.types import MatchPairs
 from ..ops import rng
-from ..ops.solve import solve_warp
+from ..ops.solve import solve_projective, solve_warp
 from ..ops.warp import warp_points
 
 
@@ -24,7 +26,8 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
                 n_sample: int = 4, model: str = "bilinear",
                 lo_iters: int = 0, corner_xy: torch.Tensor | None = None,
                 corner_span: float | None = None):
-    """Returns (coeffs [8], inlier_mask [N], n_inliers scalar).
+    """Returns (coeffs [8] bilinear or [9] projective, inlier_mask [N],
+    n_inliers scalar).
 
     PRECONDITION: ``pairs.valid`` is prefix-compacted (the matcher's
     output is); samples are uniform ints over the live prefix.
@@ -34,6 +37,7 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
     ``corner_span`` outside the valid pairs' dst bounding box score zero,
     and a refit that fails the same test falls back to the best
     hypothesis."""
+    solve_fn = solve_warp if model == "bilinear" else solve_projective
     dev = pairs.src_xy.device
     valid_f = pairs.valid.float()
     n_valid = torch.clamp(valid_f.sum(), min=1.0)
@@ -42,11 +46,11 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
                                (n_valid - 1.0).int()).long()
     src_s = pairs.src_xy[sample_idx]                      # [K, 4, 2]
     dst_s = pairs.dst_xy[sample_idx]
-    coeffs_k = solve_warp(src_s, dst_s)                   # [K, 8]
+    coeffs_k = solve_fn(src_s, dst_s)                     # [K, 8 or 9]
 
     x = pairs.src_xy[:, 0]
     y = pairs.src_xy[:, 1]
-    ck = coeffs_k.T[:, :, None]                           # [8, K, 1]
+    ck = coeffs_k.T[:, :, None]                           # [8 or 9, K, 1]
     xw, yw = warp_points(ck, x[None, :], y[None, :], model)
     dx = xw - pairs.dst_xy[:, 0][None, :]
     dy = yw - pairs.dst_xy[:, 1][None, :]
@@ -73,7 +77,12 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
     best_mask = inliers[best]
 
     def refit(mask, init):
-        return solve_warp(pairs.src_xy, pairs.dst_xy, mask.float(), init=init)
+        if model == "bilinear":
+            # warm-started residual refit: keeps the f32 normal equations
+            # at O(threshold) pixels
+            return solve_warp(pairs.src_xy, pairs.dst_xy, mask.float(),
+                              init=init)
+        return solve_projective(pairs.src_xy, pairs.dst_xy, mask.float())
 
     def score(coeffs):
         xw2, yw2 = warp_points(coeffs, x, y, model)

@@ -116,13 +116,15 @@ def plan_edges(feats_stacked: Features, edges: list[tuple[int, int, int]],
     both RANSAC directions, compute the canvas bounds, then update the
     feature coordinates — dst by forward + offset, pre by the
     int-truncated offset (ImageProcess.cpp:226-227). Rows: fwd(9),
-    bwd(9), min_x, min_y, new_w, new_h, match-capacity overflow."""
+    bwd(9) (a bilinear model's 8 coefficients and a 0), min_x, min_y,
+    new_w, new_h, match-capacity overflow."""
     h_img, w_img = img_hw
     dev = feats_stacked.desc.device
     xy_all = feats_stacked.xy.clone()   # updated in place, edge by edge
     cur_w = torch.tensor(float(start_hw[1]), device=dev)
     cur_h = torch.tensor(float(start_hw[0]), device=dev)
-    zero = torch.zeros(1, device=dev)
+    # a bilinear model's 8 coefficients fill 9 slots; a homography's 9 do
+    pad = [torch.zeros(1, device=dev)] if cfg.warp_model == "bilinear" else []
     rows = []
     for src, dst, pre in edges:
         def at_img(i):
@@ -139,7 +141,7 @@ def plan_edges(feats_stacked: Features, edges: list[tuple[int, int, int]],
                                               cfg.warp_model).xy
         xy_all[pre] = xy_all[pre] - torch.stack(
             [torch.trunc(min_x), torch.trunc(min_y)])[None, :]
-        rows.append(torch.cat([fwd, zero, bwd, zero, torch.stack(
+        rows.append(torch.cat([fwd, *pad, bwd, *pad, torch.stack(
             [min_x, min_y, new_w, new_h, ovf.float()])]))
         cur_w, cur_h = new_w, new_h
     return torch.stack(rows).cpu().numpy()

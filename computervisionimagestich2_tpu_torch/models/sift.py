@@ -29,7 +29,7 @@ from ..ops import detect, sift_walks
 from ..ops import sift_kernels as sk
 from ..ops.compaction import compact_indices, select_strongest
 from ..ops.gaussian import gaussian_blur
-from ..ops.resize import vlfeat_downsample
+from ..ops.resize import vlfeat_downsample, vlfeat_upsample_rows
 
 
 def scale_space_sigmas(cfg: SiftConfig):
@@ -186,12 +186,15 @@ def sift_extract_stats(gray: torch.Tensor, cfg: SiftConfig = SiftConfig()):
     final-capacity keypoints dropped], all 0 on a healthy run. When the
     final capacity binds, the strongest keypoints by |DoG response| are
     kept, in scan order."""
-    if cfg.o_min < 0:
-        raise NotImplementedError(
-            "sift.o_min<0 is outside the ported slice; see ROADMAP.md A13")
     first_sigma, _ = scale_space_sigmas(cfg)
     base = gray.float()
-    if cfg.o_min > 0:
+    if cfg.o_min < 0:
+        # upsampled first octave (vl_sift_process_first_octave,
+        # vl/sift.c:322-409): each doubling is a pair of row upsamples, as
+        # each transposes
+        for _ in range(-cfg.o_min):
+            base = vlfeat_upsample_rows(vlfeat_upsample_rows(base))
+    elif cfg.o_min > 0:
         base = vlfeat_downsample(base, cfg.o_min)
 
     # the next octave's base depends on this octave's Gaussian levels only,
@@ -206,6 +209,7 @@ def sift_extract_stats(gray: torch.Tensor, cfg: SiftConfig = SiftConfig()):
             base = vlfeat_downsample(octaves[-1][cfg.n_levels], 1)
     dogs = [sk.dog_stack(octave) for octave in octaves]
     # xper = 2^(o_min + o) maps octave pixels back to input coordinates
+    # (0.5 per octave pixel in an upsampled first octave)
     per_octave = [
         _process_octave(octave, cfg, cfg.o_min + o, dog, cand)
         for o, (octave, dog, cand) in enumerate(

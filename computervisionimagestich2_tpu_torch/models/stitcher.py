@@ -18,7 +18,9 @@ of device stages:
               readback of the [E, 23] plan, then one composite + blend per
               edge. Incremental mode (``planned=False``, or mixed shapes)
               keeps the reference's per-edge loop: register, read the two
-              models back, plan the canvas on the host, composite, blend.
+              models and the overflow back in one copy, plan the canvas on
+              the host, composite, blend. Either way B6 gets the backward
+              model as host floats, by value.
               ``exact_canvas=False`` composites and blends on a canvas
               padded up a geometric size grid and crops back.
   tail:       histogram equalization + YCbCr luma mix
@@ -55,12 +57,14 @@ from .transfer import color_transfer
 
 
 def _composite_and_blend(proj_dst: torch.Tensor, result: torch.Tensor,
-                         bwd: torch.Tensor, min_x: float, min_y: float,
+                         bwd: np.ndarray, min_x: float, min_y: float,
                          comp_hw: tuple[int, int], out_hw: tuple[int, int],
                          cfg: StitchConfig) -> torch.Tensor:
-    """One edge: inverse warp (kernel B6 on CUDA) + offset copy +
-    (area-gated) gain + Laplacian blend + u8 truncation + crop."""
-    a, b = compose.composite(proj_dst, result, bwd, min_x, min_y, comp_hw)
+    """One edge: inverse warp (kernel B6 on CUDA, the backward model
+    ``bwd`` as host floats) + offset copy + (area-gated) gain + Laplacian
+    blend + u8 truncation + crop."""
+    a, b = compose.composite(proj_dst, result, bwd, min_x, min_y, comp_hw,
+                             cfg.warp_model)
     a = apply_composite_gain(a, b, cfg.blend, comp_hw[0], comp_hw[1])
     blended = blend_edge(a, b, cfg.blend, out_hw[0])
     return trunc_u8(blended[:out_hw[0], :out_hw[1]])
@@ -270,10 +274,14 @@ class Stitcher:
         forward, backward, _, ovf = register_edge(
             feats[src_i], feats[dst_i], cfg, src_i * 65536 + dst_i,
             tuple(projected[dst_i].shape[:2]))
-        host = torch.cat([forward, ovf.float()[None]]).cpu().numpy()
-        if host[8] > 0:
+        # [forward, backward, overflow]: 8 + 8 + 1 or 9 + 9 + 1 floats
+        n_coef = forward.shape[0]
+        host = torch.cat([forward, backward, ovf.float()[None]]).cpu().numpy()
+        fwd_host, bwd_host = host[:n_coef], host[n_coef:2 * n_coef]
+        dropped = int(host[2 * n_coef])
+        if dropped > 0:
             obs.warn("match_overflow", src=src_i, dst=dst_i,
-                     dropped=int(host[8]), capacity=cfg.match.max_matches)
+                     dropped=dropped, capacity=cfg.match.max_matches)
         if cfg.color_transfer:
             # the reference's disabled per-edge normalization
             # (ImageProcess.cpp:180), written back into the projected
@@ -282,11 +290,11 @@ class Stitcher:
                                               projected[src_i])
         src_hw = tuple(projected[dst_i].shape[:2])
         new_h, new_w, min_x, min_y = compose.canvas_plan(
-            host[:8], src_hw, tuple(result.shape[:2]))
+            fwd_host, src_hw, tuple(result.shape[:2]), cfg.warp_model)
         self._validate_canvas(new_h, new_w, src_hw,
                               f"edge ({src_i}, {dst_i})")
         result = _composite_and_blend(
-            projected[dst_i], result, backward, min_x, min_y,
+            projected[dst_i], result, bwd_host, min_x, min_y,
             self._comp_hw(new_h, new_w), (new_h, new_w), cfg)
         feats[dst_i] = update_features_by_warp(feats[dst_i], forward,
                                                min_x, min_y, cfg.warp_model)
@@ -344,13 +352,14 @@ class Stitcher:
         plan = plan_edges(self._matching_feats(), edge_seq, img_hw,
                           start_hw, cfg)
         self._validate_plan(plan, img_hw, len(edge_seq))
+        n_coef = 9 if cfg.warp_model == "projective" else 8
         for k, (src_i, dst_i, _pre_i) in enumerate(edge_seq):
             if cfg.color_transfer:
                 # as in _stitch_edge; the plan is untouched (the reference
                 # transfers after getImgPair)
                 projected[dst_i] = color_transfer(projected[dst_i],
                                                   projected[src_i])
-            bwd = torch.as_tensor(plan[k, 9:17], device=self.device)
+            bwd = plan[k, 9:9 + n_coef]
             min_x, min_y = float(plan[k, 18]), float(plan[k, 19])
             new_w, new_h = int(plan[k, 20]), int(plan[k, 21])
             result = _composite_and_blend(

@@ -14,7 +14,8 @@ blended into the canvas:
   shift with them: a rolling window of bounded memory.
 
 Per frame: one registration (two B4 launches), one readback of the two
-models and the counts, then composite (B6) and blend on the device.
+models and the counts, then composite (B6, the backward model by value)
+and blend on the device.
 ``stage_times`` holds the last ``push``'s seconds for ``sift``,
 ``register`` and ``composite`` (composite + blend); on CUDA each stage ends
 in a synchronise, so they add up to the frame's latency.
@@ -93,12 +94,15 @@ class StreamingStitcher:
 
     def _register(self, target, feats, img_hw):
         """register_edge against ``target``, then one readback of forward,
-        n_matches and overflow."""
+        backward, n_matches and overflow. Returns (forward on the device,
+        forward and backward on the host, n_matches, overflow)."""
         forward, backward, n_matches, ovf = register_edge(
             target, feats, self.config, self._n_frames, img_hw)
-        host = torch.cat([forward, n_matches.float()[None],
+        n = forward.shape[0]
+        host = torch.cat([forward, backward, n_matches.float()[None],
                           ovf.float()[None]]).cpu().numpy()
-        return forward, backward, host
+        return (forward, host[:n], host[n:2 * n], int(host[2 * n]),
+                int(host[2 * n + 1]))
 
     def push(self, frame: np.ndarray) -> tuple[int, int]:
         """Ingest one frame; returns the current canvas (h, w)."""
@@ -117,33 +121,34 @@ class StreamingStitcher:
             # edge id = frame index -> distinct RANSAC draws per frame
             target = (self._kf_feats if self.anchor == "keyframe"
                       else self._feats)
-            forward, backward, host = self._register(target, feats, img_hw)
+            forward, fwd_host, bwd_host, n_matches, dropped = \
+                self._register(target, feats, img_hw)
             if (self.anchor == "keyframe"
-                    and host[8] < cfg.match.pair_threshold):
+                    and n_matches < cfg.match.pair_threshold):
                 # the keyframe fell out of view: promote the previous frame
                 # and register against it (drift resets to this point)
                 self._kf_feats = self._feats
                 self.n_keyframe_switches += 1
                 obs.log("stream_keyframe", frame=self._n_frames,
-                        stale_matches=int(host[8]))
-                forward, backward, host = self._register(self._kf_feats,
-                                                         feats, img_hw)
-            if host[9] > 0:
+                        stale_matches=n_matches)
+                forward, fwd_host, bwd_host, n_matches, dropped = \
+                    self._register(self._kf_feats, feats, img_hw)
+            if dropped > 0:
                 obs.warn("match_overflow", frame=self._n_frames,
-                         dropped=int(host[9]),
-                         capacity=cfg.match.max_matches)
+                         dropped=dropped, capacity=cfg.match.max_matches)
 
         with self._timer.stage("composite"):
             ext_h, ext_w, min_x, min_y = compose.canvas_plan(
-                host[:8], img_hw, tuple(self._result.shape[:2]))
+                fwd_host, img_hw, tuple(self._result.shape[:2]),
+                cfg.warp_model)
             Stitcher._validate_canvas(ext_h, ext_w, img_hw,
                                       f"stream frame {self._n_frames}")
             # the padded canvas is kept; the pre-padding height stays the
             # seam row bound (models.blender.half_plane_mask)
             new_hw = (compose.bucket_size(ext_h, cfg.canvas_bucket),
                       compose.bucket_size(ext_w, cfg.canvas_bucket))
-            a, b = compose.composite(img, self._result, backward, min_x,
-                                     min_y, new_hw)
+            a, b = compose.composite(img, self._result, bwd_host, min_x,
+                                     min_y, new_hw, cfg.warp_model)
             a = apply_composite_gain(a, b, cfg.blend, *new_hw)
             self._result = trunc_u8(blend_edge(a, b, cfg.blend, ext_h))
 
@@ -165,7 +170,7 @@ class StreamingStitcher:
                                                            float(drop), 0.0)
             self._sync()
         obs.log("stream", frame=self._n_frames,
-                canvas=tuple(self._result.shape[:2]), matches=int(host[8]))
+                canvas=tuple(self._result.shape[:2]), matches=n_matches)
         return tuple(self._result.shape[:2])
 
     def canvas(self) -> np.ndarray:

@@ -16,7 +16,9 @@ move pixels.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that it went
-through the kernels (``reset_launch_counts`` / ``launch_counts``).
+through the kernels (``reset_launch_counts`` / ``launch_counts``). B6
+counts its two branches apart: ``warp_image`` (bilinear) and
+``warp_image_projective``.
 """
 from __future__ import annotations
 
@@ -39,11 +41,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"detect_compact": 0, "sift_orientation_hist": 0,
             "sift_descriptors": 0, "l1_two_nearest_bidir": 0,
-            "pair_match_counts": 0, "warp_image": 0, "l1_two_nearest": 0}
+            "pair_match_counts": 0, "warp_image": 0,
+            "warp_image_projective": 0, "l1_two_nearest": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+class WarpParams(ctypes.Structure):
+    """``CvsWarpParams`` of ``csrc/api.h``, passed to B6 by value."""
+
+    _fields_ = [("c", _F * 9), ("ox", _F), ("oy", _F), ("model", _I)]
+
+
 _SIGNATURES = {
     # (n_oct, dog pointers (host), dims (host), gate, coords, valid, n_total,
     #  status, status_len, stream)
@@ -65,8 +76,9 @@ _SIGNATURES = {
     #  tile_start, part, out, stream)
     "cvs_pair_match_counts": (_P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P,
                               _P),
-    # (src, src_h, src_w, channels, params, h_out, w_out, out, stream)
-    "cvs_warp_image": (_P, _I, _I, _I, _P, _I, _I, _P, _P),
+    # (src, src_h, src_w, channels, params by value, h_out, w_out, out,
+    #  stream)
+    "cvs_warp_image": (_P, _I, _I, _I, WarpParams, _I, _I, _P, _P),
 }
 
 _LIB = None

@@ -7,7 +7,9 @@ origin-aligned linear interpolation when enlarging (CImg.h:29618-29654).
 The weights are precomputed on the host per shape pair and applied as the
 same banded shifted-slice sums as the JAX package (same term order).
 ``vlfeat_downsample`` is VLFeat's stride-2^d point decimation
-(copy_and_downsample, vl/sift.c:178-194).
+(copy_and_downsample, vl/sift.c:178-194) and ``vlfeat_upsample_rows`` its
+midpoint row doubling (copy_and_upsample_rows, vl/sift.c:81-101), which
+builds the first octave when ``sift.o_min < 0``.
 """
 from __future__ import annotations
 
@@ -154,3 +156,13 @@ def vlfeat_downsample(img: torch.Tensor, d: int = 1) -> torch.Tensor:
     w = img.shape[-1]
     n_out = (w - step) // step + 1
     return img[..., ::step, : step * n_out: step]
+
+
+def vlfeat_upsample_rows(img: torch.Tensor) -> torch.Tensor:
+    """One application of copy_and_upsample_rows (vl/sift.c:81-101): each
+    row doubles in length with midpoint interpolation (the last sample
+    repeats), and the result is transposed. img: [..., H, W] -> [..., 2W,
+    H]; two calls double an image."""
+    nxt = torch.cat([img[..., :, 1:], img[..., :, -1:]], dim=-1)
+    up = torch.stack([img, 0.5 * (img + nxt)], dim=-1)
+    return up.reshape(img.shape[:-1] + (2 * img.shape[-1],)).transpose(-1, -2)

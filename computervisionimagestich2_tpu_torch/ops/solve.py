@@ -1,4 +1,4 @@
-"""Bilinear warp-model solver (counterpart of
+"""Warp-model solvers (counterpart of
 ``computervisionimagestich2_tpu.ops.solve``).
 
 The reference solves A h = b with rows [x, y, x*y, 1] for x' and y' — a
@@ -8,6 +8,11 @@ ImageProcess.cpp:500-529). Here coordinates are normalised (shift/scale)
 before an unrolled 4x4 Cholesky solve of the normal equations, with one
 refinement step, and mapped back exactly; all leading dims are batched, so
 one call solves every RANSAC hypothesis.
+
+``solve_projective`` fits the 3x3 homography of ``warp_model="projective"``
+(normalised DLT in inhomogeneous form) with an unrolled n x n Cholesky
+that sums in the JAX package's order, term by term: that order decides
+which 4-point hypotheses score at the 4 px threshold.
 """
 from __future__ import annotations
 
@@ -119,3 +124,118 @@ def solve_warp(src_xy: torch.Tensor, dst_xy: torch.Tensor,
     coeffs = _denormalize(sol.transpose(-1, -2), cx, cy, s)  # [..., 2, 4]
     flat = coeffs.reshape(coeffs.shape[:-2] + (8,))
     return flat + init if init is not None else flat
+
+
+def _cholesky(a: torch.Tensor) -> list:
+    """Lower Cholesky factor of SPD a [..., n, n] as a nested list of
+    [...] tensors, unrolled in the JAX package's ``_solve_spd`` order:
+    each dot product accumulates from 0 in increasing k, and the pivot is
+    clamped at 1e-30."""
+    n = a.shape[-1]
+    eps = 1e-30
+    zero = torch.zeros_like(a[..., 0, 0])
+    l = [[None] * n for _ in range(n)]
+    for i in range(n):
+        acc = zero
+        for k in range(i):
+            acc = acc + l[i][k] * l[i][k]
+        l[i][i] = torch.sqrt(torch.clamp(a[..., i, i] - acc, min=eps))
+        for j in range(i + 1, n):
+            acc = zero
+            for k in range(i):
+                acc = acc + l[j][k] * l[i][k]
+            l[j][i] = (a[..., j, i] - acc) / l[i][i]
+    return l
+
+
+def _cho_solve(l: list, b: torch.Tensor) -> torch.Tensor:
+    """Solve L L^T x = b for b [..., n, K] with the factor of
+    ``_cholesky``: forward then back substitution, in the order of the
+    JAX package's ``_solve_spd``. Returns [..., n, K]."""
+    n = len(l)
+    zero = torch.zeros_like(b[..., 0, :])
+    y = [None] * n
+    for i in range(n):
+        acc = zero
+        for k in range(i):
+            acc = acc + l[i][k][..., None] * y[k]
+        y[i] = (b[..., i, :] - acc) / l[i][i][..., None]
+    x = [None] * n
+    for i in reversed(range(n)):
+        acc = zero
+        for k in range(i + 1, n):
+            acc = acc + l[k][i][..., None] * x[k]
+        x[i] = (y[i] - acc) / l[i][i][..., None]
+    return torch.stack(x, dim=-2)
+
+
+def _solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unrolled Cholesky solve of a @ x = b (JAX ``ops/solve.py::
+    _solve_spd``, batched over leading dims). a: [..., n, n] SPD,
+    b: [..., n, K]."""
+    return _cho_solve(_cholesky(a), b)
+
+
+def solve_projective(src_xy: torch.Tensor, dst_xy: torch.Tensor,
+                     weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Fit a projective homography (normalised DLT, inhomogeneous form)
+    mapping src -> dst: x' = (h0 x + h1 y + h2) / (h6 x + h7 y + 1),
+    y' = (h3 x + h4 y + h5) / (h6 x + h7 y + 1), by least squares on the
+    linearised equations after the same centring and scaling as
+    ``solve_warp``, with a 1e-6 ridge and two steps of iterative
+    refinement.
+
+    src_xy, dst_xy: [..., N, 2]; weights: optional [..., N] (the RANSAC
+    inlier set). Returns [..., 9], the row-major homography with
+    h[8] = 1. The system is factored once and the factor reused by the
+    refinement steps (the JAX package factors it again each time, to the
+    same bits)."""
+    x, y = src_xy[..., 0], src_xy[..., 1]
+    u, v = dst_xy[..., 0], dst_xy[..., 1]
+    if weights is None:
+        weights = torch.ones_like(x)
+    wsum = torch.clamp(torch.sum(weights, dim=-1), min=1.0)
+
+    def mean(t):
+        return torch.sum(weights * t, dim=-1) / wsum
+
+    cx, cy, cu, cv = mean(x), mean(y), mean(u), mean(v)
+    e = lambda t: t[..., None]  # noqa: E731 — broadcast over N
+    s = torch.clamp(mean(torch.abs(x - e(cx)) + torch.abs(y - e(cy))),
+                    min=1e-3)
+    t = torch.clamp(mean(torch.abs(u - e(cu)) + torch.abs(v - e(cv))),
+                    min=1e-3)
+    xn, yn = (x - e(cx)) / e(s), (y - e(cy)) / e(s)
+    un, vn = (u - e(cu)) / e(t), (v - e(cv)) / e(t)
+
+    zero = torch.zeros_like(xn)
+    one = torch.ones_like(xn)
+    # rows [x y 1 0 0 0 -u*x -u*y] h = u and [0 0 0 x y 1 -v*x -v*y] h = v
+    a_u = torch.stack([xn, yn, one, zero, zero, zero, -un * xn, -un * yn],
+                      dim=-1)
+    a_v = torch.stack([zero, zero, zero, xn, yn, one, -vn * xn, -vn * yn],
+                      dim=-1)
+    a_mat = torch.cat([a_u, a_v], dim=-2)                 # [..., 2N, 8]
+    rhs = torch.cat([un, vn], dim=-1)[..., None]          # [..., 2N, 1]
+    w2 = torch.cat([weights, weights], dim=-1)
+    awt = (a_mat * w2[..., None]).transpose(-1, -2)       # [..., 8, 2N]
+    ata = awt @ a_mat + 1e-6 * torch.eye(8, dtype=a_mat.dtype,
+                                         device=a_mat.device)
+    factor = _cholesky(ata)
+    hn = _cho_solve(factor, awt @ rhs)                    # [..., 8, 1]
+    # iterative refinement against the original residual
+    for _ in range(2):
+        hn = hn + _cho_solve(factor, awt @ (rhs - a_mat @ hn))
+
+    # denormalise: H = T_dst^-1 @ Hn @ T_src, with T_src: p -> (p - c) / s
+    # and T_dst^-1: q -> q t + c_dst
+    h_n = torch.cat([hn[..., 0], torch.ones_like(hn[..., 0, :])],
+                    dim=-1).reshape(hn.shape[:-2] + (3, 3))
+    z, o = torch.zeros_like(s), torch.ones_like(s)
+    t_src = torch.stack([1 / s, z, -cx / s, z, 1 / s, -cy / s, z, z, o],
+                        dim=-1).reshape(s.shape + (3, 3))
+    t_dst_inv = torch.stack([t, z, cu, z, t, cv, z, z, o],
+                            dim=-1).reshape(s.shape + (3, 3))
+    h_full = t_dst_inv @ h_n @ t_src
+    h_full = h_full / h_full[..., 2:3, 2:3]
+    return h_full.reshape(h_full.shape[:-2] + (9,))

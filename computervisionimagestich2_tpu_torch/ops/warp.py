@@ -5,19 +5,24 @@
   with the semantics of the JAX package's gather oracle
   ``_cylindrical_project_gather`` (the banded MXU form exists for the TPU)
 - ``warp_xy`` / ``warp_points`` <- getX/YAfterWarping (ImageProcess.cpp:465-471)
+- ``projective_xy``       the 3x3 homography of ``warp_model="projective"``
 - ``warp_image``          <- warpingImageByHomography (ImageProcess.cpp:596-606):
   kernel B6 (``csrc/warp.cu``) on a CUDA tensor, ``warp_image_plain`` on a
-  CPU tensor
+  CPU tensor, for both warp models
 - ``shift_image``         <- movingImageByOffset (ImageProcess.cpp:608-620)
 
 Images are [H, W, C] float32 (values 0..255). Coefficients are the
 reference's 8-coefficient bilinear warp [w11, w12, w13, w21, w22, w23, w31,
-w32]: x' = w11 x + w12 y + w13 x y + w21, y' = w22 x + w23 y + w31 x y + w32.
+w32]: x' = w11 x + w12 y + w13 x y + w21, y' = w22 x + w23 y + w31 x y + w32;
+or, with ``model="projective"``, a row-major 3x3 homography as 9 floats.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import Sequence
 
+import numpy as np
 import torch
 
 from . import _native
@@ -97,21 +102,39 @@ def warp_xy(coeffs: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     return xw, yw
 
 
+def projective_xy(coeffs: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Apply a row-major 3x3 homography stored as 9 coefficients (the
+    JAX package's ``projective_xy``): a denominator within 1e-12 of 0
+    becomes 1e-12."""
+    c = coeffs
+    den = c[6] * x + c[7] * y + c[8]
+    den = torch.where(torch.abs(den) < 1e-12, 1e-12, den)
+    return ((c[0] * x + c[1] * y + c[2]) / den,
+            (c[3] * x + c[4] * y + c[5]) / den)
+
+
+N_COEFFS = {"bilinear": 8, "projective": 9}
+
+
 def warp_points(coeffs: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 model: str = "bilinear"):
-    """Model-dispatching point warp (the slice ports 'bilinear' only)."""
+    """Model-dispatching point warp: 'bilinear' (8 coefficients, the
+    reference) or 'projective' (9). ``coeffs`` may carry trailing batch
+    dims ([8, K, 1] warps every point under K hypotheses)."""
     if model == "bilinear":
         return warp_xy(coeffs, x, y)
-    raise NotImplementedError(
-        f"warp model {model!r} is outside the ported slice; see ROADMAP.md A13")
+    if model == "projective":
+        return projective_xy(coeffs, x, y)
+    raise ValueError(f"unknown warp model {model!r}")
 
 
 def warp_image_plain(src: torch.Tensor, coeffs: torch.Tensor,
                      offset_x: float, offset_y: float,
-                     out_shape: tuple[int, int]) -> torch.Tensor:
+                     out_shape: tuple[int, int],
+                     model: str = "bilinear") -> torch.Tensor:
     """Plain PyTorch version of kernel B6: for each canvas pixel (x, y),
-    (nx, ny) = trunc(warp(x + ox, y + oy)); copy src[ny, nx] where in
-    bounds, else 0."""
+    (nx, ny) = trunc(warp(x + ox, y + oy)) under ``model``; copy
+    src[ny, nx] where in bounds, else 0."""
     h, w = out_shape
     src_h, src_w = src.shape[0], src.shape[1]
     dev = src.device
@@ -119,7 +142,7 @@ def warp_image_plain(src: torch.Tensor, coeffs: torch.Tensor,
     xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :].expand(h, w)
     ox = torch.tensor(offset_x, dtype=torch.float32, device=dev)
     oy = torch.tensor(offset_y, dtype=torch.float32, device=dev)
-    xw, yw = warp_xy(coeffs, xs + ox, ys + oy)
+    xw, yw = warp_points(coeffs, xs + ox, ys + oy, model)
     tx = torch.trunc(xw)
     ty = torch.trunc(yw)
     # float-domain bounds: the int test for finite values, False for NaN
@@ -129,28 +152,61 @@ def warp_image_plain(src: torch.Tensor, coeffs: torch.Tensor,
     return torch.where(valid[..., None], src[ny, nx], 0.0)
 
 
-def warp_image(src: torch.Tensor, coeffs: torch.Tensor,
+def _host_coeffs(coeffs: torch.Tensor | Sequence[float],
+                 model: str) -> np.ndarray:
+    """The model's coefficients as a float32 numpy vector: a tensor
+    (float32, on any device) is read back once; host floats are rounded to
+    float32, the type the model is evaluated in."""
+    if isinstance(coeffs, torch.Tensor):
+        if coeffs.dtype != torch.float32:
+            raise TypeError(f"warp_image.coeffs: expected torch.float32, got "
+                            f"{coeffs.dtype}")
+        coeffs = coeffs.detach().cpu().numpy()
+    c = np.asarray(coeffs, dtype=np.float32)
+    if c.shape != (N_COEFFS[model],):
+        raise ValueError(f"warp_image.coeffs: {model} takes "
+                         f"{N_COEFFS[model]} coefficients, got shape "
+                         f"{c.shape}")
+    return c
+
+
+def warp_image(src: torch.Tensor, coeffs: torch.Tensor | Sequence[float],
                offset_x: float, offset_y: float,
-               out_shape: tuple[int, int]) -> torch.Tensor:
+               out_shape: tuple[int, int],
+               model: str = "bilinear") -> torch.Tensor:
     """Inverse-warp src [H, W, C] float32 onto a fresh [h, w, C] canvas.
 
     Kernel B6 on a CUDA tensor; ``warp_image_plain`` on a CPU tensor.
-    ``coeffs``: (8,) float32 on src's device; offsets are host floats
-    (the plan's canvas minima)."""
+    ``coeffs``: the backward model (8 floats for ``model="bilinear"``, 9
+    for "projective"), as host floats, which the stitch paths hand over,
+    or as a float32 tensor. The offsets are host floats (the plan's canvas
+    minima). On the card the coefficients, offsets and model travel to the
+    kernel by value, so a tensor given here is read back once."""
+    if model not in N_COEFFS:
+        raise ValueError(f"unknown warp model {model!r}")
     if src.device.type == "cpu":
-        return warp_image_plain(src, coeffs, offset_x, offset_y, out_shape)
+        if not isinstance(coeffs, torch.Tensor):
+            coeffs = torch.from_numpy(_host_coeffs(coeffs, model))
+        return warp_image_plain(src, coeffs, offset_x, offset_y, out_shape,
+                                model)
     h, w = out_shape
     _native.check_cuda("warp_image.src", src, torch.float32, (None, None, None))
-    _native.check_cuda("warp_image.coeffs", coeffs, torch.float32, (8,))
-    par = torch.cat([coeffs, torch.tensor([offset_x, offset_y],
-                                          dtype=torch.float32,
-                                          device=src.device)])
+    if src.shape[0] * src.shape[1] == 0 or src.numel() >= 2 ** 31:
+        raise ValueError(f"warp_image.src: expected 1 to 2^31 - 1 values, "
+                         f"got shape {tuple(src.shape)}")
+    c = _host_coeffs(coeffs, model)
+    c9 = np.zeros(9, np.float32)
+    c9[:c.size] = c
+    par = _native.WarpParams((ctypes.c_float * 9)(*c9.tolist()),
+                             float(np.float32(offset_x)),
+                             float(np.float32(offset_y)),
+                             0 if model == "bilinear" else 1)
     out = torch.empty((h, w, src.shape[2]), dtype=torch.float32,
                       device=src.device)
-    _native.LAUNCHES["warp_image"] += 1
+    _native.LAUNCHES["warp_image" if model == "bilinear"
+                     else "warp_image_projective"] += 1
     _native.launch("cvs_warp_image", src.data_ptr(), src.shape[0],
-                   src.shape[1], src.shape[2], par.data_ptr(), h, w,
-                   out.data_ptr())
+                   src.shape[1], src.shape[2], par, h, w, out.data_ptr())
     return out
 
 

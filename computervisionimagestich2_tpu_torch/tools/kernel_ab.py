@@ -17,33 +17,44 @@ one NVIDIA GPU and ``nvcc``. Steps:
    call of B1 (``detect.detect_compact_octaves``: the DoG stacks of an
    image's octaves), B2 (``sift_walks.orientation_hist``), B3
    (``sift_walks.descriptors``), B4 (``distance.two_nearest_bidir``) and
-   B5 (``distance.pair_match_counts``); B7's arguments
-   (``distance.two_nearest``) in ``match_features`` of two neighbouring
-   crops, as ``chip_smoke.py`` phase 6 calls it; and B5's arguments for
-   ten 512x384 crops of one scene (45 pairs, ``pair_match_counts@n10``)
-   and for four 1440x1080 crops (``pair_match_counts@1440x1080``);
+   B5 (``distance.pair_match_counts``) and B6 (``compose.warp_image``: the
+   source, the backward model, the offsets, the canvas and the model); B7's
+   arguments (``distance.two_nearest``) in ``match_features`` of two
+   neighbouring crops, as ``chip_smoke.py`` phase 6 calls it; B5's
+   arguments for ten 512x384 crops of one scene (45 pairs,
+   ``pair_match_counts@n10``) and for four 1440x1080 crops
+   (``pair_match_counts@1440x1080``); and B6's in a default-path stitch of
+   those four 1440x1080 crops (``warp_image@1440x1080``);
 3. in turns parent, this tree, this tree, parent (a subprocess each, with
    that tree first on ``sys.path``): each tree's wrappers on the recorded
    calls (a tree without ``detect_compact_octaves`` detects the recorded
    stacks one ``detect_compact`` each), held against the plain versions
    on the card (B1 exact, B2 rtol 1e-5 with atol 1e-5 x max, B3 atol 2e-6,
    B4 and B7 d1 / d2 rtol 1e-5 and i1 where the 2-NN gap exceeds 1e-4 d1,
-   B5 exact counts, also against one B4 launch per pair) and against a
-   second run (equal bits), with a hash of B1's (coords, valid, n_total)
-   and B7's (d1, d2, i1) outputs; then, without ``--check``, the time of
+   B5 exact counts, also against one B4 launch per pair, B6 exact) and
+   against a second run (equal bits), with a hash of B1's (coords, valid,
+   n_total), B6's canvases and B7's (d1, d2, i1) outputs (B6 takes the
+   backward model as host floats where the tree's ``warp_image`` has a
+   ``model`` parameter, as this tree's stitch paths pass it, and as a
+   device tensor in an earlier tree); then, without ``--check``, the time of
    all recorded calls of a kernel in a row, mean of 10 passes after one
    warm-up: the device time of the kernels alone from ``torch.profiler``
-   (``device_ms_*``: per panorama for B1, the walks and B5, per edge for
-   B4, per call for B7), for B1 also of every device event of the calls
+   (``device_ms_*``: per panorama for B1, the walks, B5 and B6, per edge
+   for B4, per call for B7; B6 also on its last call alone, repeated,
+   ``device_ms_last_call``), for B1 also of every device event of the calls
    (``device_ms_all_events``: the launcher's memset beside the kernel), and the
    time between CUDA events around the calls, which adds the host's gaps
    between launches (``ms_all_calls_events``); B2's first call with no
    live keypoint (the cost of its launch alone,
    ``device_ms_no_keypoints``); and five warm default-path stitches of the
    recorded images after one cold one (``stitch_warm_*``, host clock),
-   with the live feature count of every image and a hash of the panorama.
+   with the live feature count of every image and a hash of the panorama,
+   and the device events of one warm stitch under ``torch.profiler``
+   (``stitch_device_events``: all, host-to-device copies, concatenation
+   kernels, B6's kernels).
    The last step compares between the trees: ``same_features``,
-   ``same_panorama``, ``same_b1_outputs``, ``same_b7_outputs``.
+   ``same_panorama``, ``same_b1_outputs``, ``same_b6_outputs``,
+   ``same_b7_outputs``.
 
 Prints one JSON object per step and writes them all to ``--out``.
 """
@@ -62,6 +73,7 @@ SITES = {"detect_compact": ("detect", "detect_compact_octaves"),
          "sift_descriptors": ("sift_walks", "descriptors"),
          "l1_two_nearest_bidir": ("distance", "two_nearest_bidir"),
          "pair_match_counts": ("distance", "pair_match_counts"),
+         "warp_image": ("compose", "warp_image"),
          "l1_two_nearest": ("distance", "two_nearest")}
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -121,15 +133,16 @@ def ptxas_report(tree: Path) -> dict:
 
 def record_inputs(path: Path) -> dict:
     """One cold default-path stitch of this tree on chip_smoke's crops,
-    keeping the arguments of every B1-B5 call (as CPU tensors), B7's in
-    ``match_features`` of two neighbouring crops, and B5's arguments at
-    ten crops and at 1440x1080."""
+    keeping the arguments of every B1-B6 call (as CPU tensors), B7's in
+    ``match_features`` of two neighbouring crops, B5's arguments at ten
+    crops and at 1440x1080, and B6's in a stitch at 1440x1080."""
+    import numpy as np
     import torch
 
     import chip_smoke
     from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
     from computervisionimagestich2_tpu_torch.core.types import Features
-    from computervisionimagestich2_tpu_torch.models import matcher
+    from computervisionimagestich2_tpu_torch.models import compose, matcher
     from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
     from computervisionimagestich2_tpu_torch.ops import (detect, distance,
                                                          sift_walks)
@@ -137,9 +150,12 @@ def record_inputs(path: Path) -> dict:
     def to_cpu(a):
         if isinstance(a, torch.Tensor):
             return a.detach().cpu()
+        if isinstance(a, np.ndarray):  # B6's backward model, host floats
+            return torch.from_numpy(np.array(a, np.float32))
         return [to_cpu(x) for x in a] if isinstance(a, list) else a
 
-    mods = {"detect": detect, "sift_walks": sift_walks, "distance": distance}
+    mods = {"detect": detect, "sift_walks": sift_walks, "distance": distance,
+            "compose": compose}
     calls = {name: [] for name in SITES}
     orig = {}
     for name, (mod, attr) in SITES.items():
@@ -161,12 +177,25 @@ def record_inputs(path: Path) -> dict:
     finally:
         for name, (mod, attr) in SITES.items():
             setattr(mods[mod], attr, orig[name])
+    big = chip_smoke.crops(1440, 1080, 630, 6, 1)
     for label, crops in (
             ("n10", chip_smoke.crops(512, 384, 224, 2, 0, n=10)),
-            ("1440x1080", chip_smoke.crops(1440, 1080, 630, 6, 1))):
+            ("1440x1080", big)):
         calls[f"pair_match_counts@{label}"] = [(
             *(a.cpu() for a in chip_smoke.pair_inputs(crops)),
             DEFAULT_CONFIG.match.ratio_threshold)]
+    warps = calls["warp_image@1440x1080"] = []
+    warp_fn = compose.warp_image
+
+    def warp_rec(*args):
+        warps.append(tuple(to_cpu(a) for a in args))
+        return warp_fn(*args)
+    compose.warp_image = warp_rec
+    try:
+        Stitcher(DEFAULT_CONFIG, device="cuda").stitch(
+            chip_smoke.scrambled(big))
+    finally:
+        compose.warp_image = warp_fn
     counts = {name: len(c) for name, c in calls.items()}
     calls["images"] = [torch.from_numpy(im) for im in images]
     torch.save(calls, path)
@@ -179,9 +208,13 @@ tree, inputs, check = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
 sys.path.insert(0, tree)
 import torch
 import hashlib
+import inspect
 from computervisionimagestich2_tpu_torch.ops import (detect, distance,
-                                                     sift_walks, _native)
+                                                     sift_walks, warp,
+                                                     _native)
 assert _native.__file__.startswith(tree), _native.__file__
+# B6 takes its model as host floats where warp_image has a model parameter
+B6_BY_VALUE = "model" in inspect.signature(warp.warp_image).parameters
 calls = torch.load(inputs)
 images = [im.numpy() for im in calls.pop("images")]
 dev = torch.device("cuda")
@@ -195,6 +228,10 @@ def to_dev(a):
 
 calls = {k: [tuple(to_dev(a) for a in c) for c in v]
          for k, v in calls.items()}
+for k in calls:
+    if k.startswith("warp_image"):  # (src, coeffs, ox, oy, canvas, model)
+        calls[k] = [(c[0], c[1].tolist() if B6_BY_VALUE else c[1], *c[2:])
+                    for c in calls[k]]
 _native.build()
 # device kernels of each wrapper, old and new designs (name substrings)
 kernels = {"detect_compact": ("detect_rows_kernel", "detect_flatten_kernel",
@@ -206,6 +243,8 @@ kernels = {"detect_compact": ("detect_rows_kernel", "detect_flatten_kernel",
                                     "l1_bidir_merge_kernel"),
            "pair_match_counts": ("pair_counts_kernel", "pair_plan_kernel",
                                  "pair_tile_kernel", "pair_count_kernel"),
+           "warp_image": ("warp_image_kernel", "warp_bilinear_kernel",
+                          "warp_projective_kernel"),
            "l1_two_nearest": ("l1_two_nearest_kernel",
                               "l1_one_way_tile_kernel",
                               "l1_one_way_merge_kernel")}
@@ -217,6 +256,21 @@ def detect_octaves(dogs, tp, caps):
     if hasattr(detect, "detect_compact_octaves"):
         return detect.detect_compact_octaves(dogs, tp, caps)
     return [detect.detect_compact(d, tp, c) for d, c in zip(dogs, caps)]
+
+
+def b6(src, coeffs, ox, oy, canvas, model="bilinear"):
+    if B6_BY_VALUE:
+        return warp.warp_image(src, coeffs, ox, oy, canvas, model)
+    assert model == "bilinear", model
+    return warp.warp_image(src, coeffs, ox, oy, canvas)
+
+
+def b6_plain(src, coeffs, ox, oy, canvas, model="bilinear"):
+    c = torch.tensor(coeffs, dtype=torch.float32, device=dev) \
+        if isinstance(coeffs, list) else coeffs
+    if B6_BY_VALUE:
+        return warp.warp_image_plain(src, c, ox, oy, canvas, model)
+    return warp.warp_image_plain(src, c, ox, oy, canvas)
 
 
 def digest(h, tensors):
@@ -238,7 +292,8 @@ fns = {"detect_compact": (
            lambda q, r, qv, rv: (distance.two_nearest_plain(q, r, qv, rv),
                                  distance.two_nearest_plain(r, q, rv, qv))),
        "pair_match_counts": (distance.pair_match_counts,
-                             distance.pair_match_counts_plain)}
+                             distance.pair_match_counts_plain),
+       "warp_image": (b6, b6_plain)}
 out = {"tree": tree, "gpu": torch.cuda.get_device_name(0)}
 
 
@@ -286,6 +341,10 @@ for key in calls:
             assert torch.equal(a[2][clear], p[2][clear])
             err = max(err, float((a[0][ok] - p[0][ok]).abs().max()))
             digest(sha, a)
+        elif name == "warp_image":
+            assert torch.equal(a, b), "not deterministic"
+            assert torch.equal(a, p), "B6 must be exact"
+            digest(sha, (a,))
         elif name == "pair_match_counts":
             assert torch.equal(a, b), "not deterministic"
             # a query within rounding of the ratio may fall either way
@@ -317,8 +376,10 @@ for key in calls:
                     atol=1e-5 * float(p[0].abs().max()))
             err = max(err, float((a[0] - p[0]).abs().max()))
     rec = {"calls": len(calls[key]), "max_abs_err": err}
-    if name in ("detect_compact", "l1_two_nearest"):
+    if name in ("detect_compact", "l1_two_nearest", "warp_image"):
         rec["outputs_sha256"] = sha.hexdigest()[:16]
+    if name == "warp_image":
+        rec["canvases"] = [list(c[4]) for c in calls[key]]
     if name == "detect_compact":
         rec["octaves"] = sum(len(c[0]) for c in calls[key])
     if name == "pair_match_counts":
@@ -347,6 +408,9 @@ for key in calls:
             rec["device_ms_all_events"] = every
             c = calls[key][0]
             rec["device_ms_first_call"] = device_ms(lambda: kern(*c), name)[0]
+        if name == "warp_image":  # the last call 10 times in a row
+            c = calls[key][-1]
+            rec["device_ms_last_call"] = device_ms(lambda: kern(*c), name)[0]
         if name == "sift_orientation_hist":
             c = list(calls[key][0])
             rec["device_ms_first_call"] = device_ms(lambda: kern(*c), name)[0]
@@ -371,6 +435,21 @@ if not check:  # the whole default path, warm, on the recorded images
     out["ordering_stage_s"] = st.stage_times["ordering"]
     out["stitch_warm_s"] = walls
     out["stitch_warm_median_s"] = statistics.median(walls)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st.stitch(images)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")
+          and (getattr(e, "self_device_time_total", 0)
+               or getattr(e, "self_cuda_time_total", 0))]
+    def n_ev(*subs):
+        return sum(e.count for e in ev if any(k in e.key for k in subs))
+    out["stitch_device_events"] = {
+        "all": sum(e.count for e in ev), "memcpy_htod": n_ev("HtoD"),
+        "cat_kernels": n_ev("CatArray", "cat_"),
+        "b6_kernels": n_ev(*kernels["warp_image"])}
 print("CHILD " + json.dumps(out), flush=True)
 """
 
@@ -431,7 +510,9 @@ def main(argv=None) -> int:
     runs = {r["run"]: r for r in results if "run" in r}
     results.append({f"same_{kid}_outputs": runs["parent"][name][
         "outputs_sha256"] == runs["this"][name]["outputs_sha256"]
-        for kid, name in (("b1", "detect_compact"), ("b7", "l1_two_nearest"))})
+        for kid, name in (("b1", "detect_compact"), ("b6", "warp_image"),
+                          ("b6_at_1440x1080", "warp_image@1440x1080"),
+                          ("b7", "l1_two_nearest"))})
     print(json.dumps(results[-1]), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -121,15 +121,35 @@ def test_resume_without_artifacts_is_refused(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--sp", "2"], "A18"),
-    (["--warp-model", "projective"], "A13"),
     (["--match-method", "l2pre"], "A14"),
-], ids=["sp", "projective", "l2pre"])
+], ids=["sp", "l2pre"])
 def test_outside_the_port_is_refused(tmp_path, capsys, argv, item):
     """Sharding and the configurations check_supported refuses exit with
     a usage error naming the ROADMAP item that ports them."""
     d = _write_crops(tmp_path / "in", 2)
     err = _cli_error(capsys, ["--input", str(d), "--device", "cpu"] + argv)
     assert f"ROADMAP.md {item}" in err, err
+
+
+def test_projective_writes_a_panorama(tmp_path):
+    """--warp-model projective runs: the CLI writes the port's Stitcher
+    output for the same flags, bit for bit, wider than one input."""
+    scene = make_scene(np.random.default_rng(0), h=160, w=320)
+    d = tmp_path / "in"
+    d.mkdir()
+    for i, x0 in enumerate((0, 80)):
+        save_image(str(d / f"{i + 1}.bmp"), scene[:, x0:x0 + 160])
+    out = tmp_path / "pano.bmp"
+    argv = ["--input", str(d), "--output", str(out), "--ordering", "chain",
+            "--warp-model", "projective", "--device", "cpu"]
+    cli.main(argv)
+    cfg = cli.build_config(cli.make_parser().parse_args(argv))
+    assert cfg.warp_model == "projective"
+    pano = load_image(str(out))
+    ref = TStitcher(cfg, device="cpu").stitch(
+        [load_image(str(d / f"{i}.bmp")) for i in (1, 2)])
+    np.testing.assert_array_equal(pano, ref)
+    assert pano.shape[1] > 200, pano.shape
 
 
 def test_cuda_without_gpu_is_refused(tmp_path, capsys):

@@ -117,8 +117,8 @@ def test_gain_compensate_rgb(canvases):
                                            "rgb"))
     got = tgain.gain_compensate(T(a2), T(b), "rgb").numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-3)
-    with pytest.raises(NotImplementedError):
-        tgain.gain_compensate(T(a2), T(b), "luma")
+    with pytest.raises(ValueError, match="unknown gain mode"):
+        tgain.gain_compensate(T(a2), T(b), "hsv")
 
 
 def test_equalize_and_mix():

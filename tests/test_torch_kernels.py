@@ -338,6 +338,62 @@ def test_kernel_b4_b6_match_plain(cuda_device):
     assert torch.equal(out.cpu(), ref)
 
 
+# B6's cases: (model, coefficients, source [h, w, C], canvas (h, w),
+# offsets). The projective "horizon" homography has den = 0 inside the
+# canvas, so inf / NaN source coordinates land on it and must write 0.
+B6_PROJECTIVE = [0.98, 0.03, -4.0, -0.02, 1.01, 6.5, 2e-4, -1e-4, 1.0]
+B6_HORIZON = [1.0, 0.02, 3.0, 0.01, 1.0, 2.0, -0.0105, 1e-4, 1.0]
+B6_CASES = {
+    "bilinear": ("bilinear", WARP_COEFFS.tolist(), (60, 50, 3), (80, 92),
+                 (-3.5, -7.25)),
+    "bilinear_w_not_4": ("bilinear", WARP_COEFFS.tolist(), (60, 50, 3),
+                         (77, 93), (-3.5, -7.25)),
+    "bilinear_c1": ("bilinear", WARP_COEFFS.tolist(), (60, 50, 1), (80, 90),
+                    (-3.5, -7.25)),
+    "bilinear_1x1": ("bilinear", WARP_COEFFS.tolist(), (60, 50, 3), (1, 1),
+                     (10.0, 12.0)),
+    "projective": ("projective", B6_PROJECTIVE, (60, 50, 3), (81, 96),
+                   (-3.5, -7.25)),
+    "projective_w_not_4": ("projective", B6_PROJECTIVE, (60, 50, 3),
+                           (81, 93), (-3.5, -7.25)),
+    "projective_c1": ("projective", B6_PROJECTIVE, (60, 50, 1), (81, 93),
+                      (-3.5, -7.25)),
+    "projective_c4": ("projective", B6_PROJECTIVE, (60, 50, 4), (81, 93),
+                      (-3.5, -7.25)),
+    "projective_1x1": ("projective", B6_PROJECTIVE, (60, 50, 3), (1, 1),
+                       (10.0, 12.0)),
+    "projective_horizon": ("projective", B6_HORIZON, (60, 50, 3), (70, 130),
+                           (-3.5, -7.25)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(B6_CASES))
+def test_kernel_b6_matches_plain(cuda_device, case):
+    """B6 exact against its plain version for both models: canvas widths
+    that are and are not multiples of 4 (the vector stores and the scalar
+    tail), one and four channels, a 1 x 1 canvas and a horizon crossing the
+    canvas; the coefficients by value (host floats) and as a tensor give
+    the same canvas, and each call counts one launch of its branch."""
+    model, coeffs, (h, w, c), canvas, (ox, oy) = B6_CASES[case]
+    rng = np.random.default_rng(15)
+    src = T(rng.integers(0, 256, (h, w, c)).astype(np.float32))
+    ref = twarp.warp_image_plain(src, T(np.float32(coeffs)), ox, oy, canvas,
+                                 model)
+    g = src.to(cuda_device)
+    name = "warp_image" if model == "bilinear" else "warp_image_projective"
+    _native.reset_launch_counts()
+    by_value = twarp.warp_image(g, coeffs, ox, oy, canvas, model)
+    as_tensor = twarp.warp_image(g, T(np.float32(coeffs)).to(cuda_device),
+                                 ox, oy, canvas, model)
+    torch.cuda.synchronize()
+    assert _native.launch_counts()[name] == 2
+    assert torch.equal(by_value.cpu(), ref)
+    assert torch.equal(as_tensor.cpu(), ref)
+    if not case.endswith("1x1"):
+        assert (ref != 0).any() and (ref == 0).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("i", range(5))
 def test_kernel_b1_matches_plain(cuda_device, i):
@@ -629,8 +685,9 @@ def test_slice_on_card_goes_through_the_kernels(cuda_device, config):
     _native.reset_launch_counts()
     out = Stitcher(cfg, device=cuda_device).stitch(crops)
     counts = _native.launch_counts()
-    off_path = {"l1_two_nearest"} if config == "default" else {
-        "detect_compact", "pair_match_counts", "l1_two_nearest"}
+    off_path = {"l1_two_nearest", "warp_image_projective"} | (
+        set() if config == "default"
+        else {"detect_compact", "pair_match_counts"})
     assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
     ref = Stitcher(cfg, device="cpu").stitch(crops)
     assert abs(out.shape[0] - ref.shape[0]) <= 3, (out.shape, ref.shape)
@@ -678,7 +735,7 @@ def test_incremental_on_card_goes_through_the_kernels(cuda_device, shapes):
     _native.reset_launch_counts()
     out = Stitcher(cfg, device=cuda_device).stitch(crops)
     counts = _native.launch_counts()
-    off_path = {"l1_two_nearest"} | (
+    off_path = {"l1_two_nearest", "warp_image_projective"} | (
         set() if shapes == "uniform" else {"pair_match_counts"})
     assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
     _assert_close_canvas(out, Stitcher(cfg, device="cpu").stitch(crops))
@@ -700,8 +757,28 @@ def test_stream_on_card_goes_through_the_kernels(cuda_device):
     _native.reset_launch_counts()
     sizes = [ss.push(f) for f in frames]
     counts = _native.launch_counts()
-    assert all((c == 0) == (k in ("pair_match_counts", "l1_two_nearest"))
+    assert all((c == 0) == (k in ("pair_match_counts", "l1_two_nearest",
+                                  "warp_image_projective"))
                for k, c in counts.items()), counts
     ref = StreamingStitcher(cfg, device="cpu")
     assert sizes == [ref.push(f) for f in frames]
     _assert_close_canvas(ss.canvas(), ref.canvas())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planned", [True, False],
+                         ids=["planned", "incremental"])
+def test_projective_on_card_goes_through_the_kernels(cuda_device, planned):
+    """warp_model="projective" on the card launches B6's projective branch
+    and never its bilinear one; the canvas is the CPU run's within the
+    end-to-end gate."""
+    img = _scene(w=200)
+    crops = [img[:, 60:], img[:, :140]]
+    cfg = dataclasses.replace(_small(DEFAULT_CONFIG), warp_model="projective",
+                              planned=planned)
+    _native.reset_launch_counts()
+    out = Stitcher(cfg, device=cuda_device).stitch(crops)
+    counts = _native.launch_counts()
+    off_path = {"l1_two_nearest", "warp_image"}
+    assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
+    _assert_close_canvas(out, Stitcher(cfg, device="cpu").stitch(crops))

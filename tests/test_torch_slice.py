@@ -80,11 +80,6 @@ def test_cuda_request_raises_without_gpu():
     dict(match=dataclasses.replace(SLICE_CONFIG.match, distance="l2")),
     dict(sift=dataclasses.replace(SLICE_CONFIG.sift, walk_dtype="bf16")),
     dict(match=dataclasses.replace(SLICE_CONFIG.match, method="l2pre")),
-    dict(warp_model="projective"),
-    dict(blend=dataclasses.replace(SLICE_CONFIG.blend, blur_impl="vanvliet")),
-    dict(sift=dataclasses.replace(SLICE_CONFIG.sift, o_min=-1)),
-    dict(blend=dataclasses.replace(SLICE_CONFIG.blend, gain_compensation=True,
-                                   gain_mode="luma")),
 ])
 def test_outside_the_slice_raises(change):
     cfg = dataclasses.replace(SLICE_CONFIG, **change)
@@ -104,13 +99,22 @@ def test_outside_the_slice_raises(change):
     dataclasses.replace(SLICE_CONFIG, planned=False),
     dataclasses.replace(SLICE_CONFIG, exact_canvas=False),
     dataclasses.replace(SLICE_CONFIG, color_transfer=True),
+    dataclasses.replace(SLICE_CONFIG, warp_model="projective"),
+    dataclasses.replace(SLICE_CONFIG, blend=dataclasses.replace(
+        SLICE_CONFIG.blend, blur_impl="vanvliet")),
+    dataclasses.replace(SLICE_CONFIG, sift=dataclasses.replace(
+        SLICE_CONFIG.sift, o_min=-1)),
+    dataclasses.replace(SLICE_CONFIG, blend=dataclasses.replace(
+        SLICE_CONFIG.blend, gain_compensation=True, gain_mode="luma")),
 ], ids=["graph", "fused_detect", "method_auto", "default_config",
-        "incremental", "bucketed_canvas", "color_transfer"])
+        "incremental", "bucketed_canvas", "color_transfer", "projective",
+        "vanvliet", "o_min_-1", "luma_gain"])
 def test_default_path_switches_are_accepted(cfg):
     """The default configuration's switches are ported: graph ordering,
     the fused detect and method="auto" (exact L1 off a TPU); so are the
-    incremental stitch, bucketed canvases (the command line's default) and
-    the per-edge color transfer."""
+    incremental stitch, bucketed canvases (the command line's default),
+    the per-edge color transfer, projective warps, the Van Vliet blend, an
+    upsampled first octave and the luma gain."""
     check_supported(cfg)
     assert TStitcher(cfg, device="cpu").config is cfg
 
