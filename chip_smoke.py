@@ -88,12 +88,29 @@ phase with its result and seconds:
    four 1440x1080 images, a 2880 x 2160 first octave, with their SIFT
    telemetry), ``gain_mode="luma"`` with gain compensation, and the Van
    Vliet blend (both against a CPU run on the card's features; with the
-   time and device launches of one Van Vliet blend beside the FIR one's).
+   time and device launches of one Van Vliet blend beside the FIR one's);
+14. batched panoramas (BASELINE config 3, ``parallel/batched.py``): two
+   panoramas of four crops in scene order, from two seeds, at 512x384 and
+   1440x1080 on the default fixed canvas: launches per batch (B1 once per
+   image, B4 and B6 once per edge), each panorama equal to itself stitched
+   alone, bit for bit, no ``batched_canvas_overflow``, warm wall, device
+   busy and idle share, peak memory, the blend gates the canvas engages; at
+   512x384 the canvases against the port's CPU batch and the content
+   extents against the chain-ordered ``Stitcher``; then
+   ``batched_pairwise_register`` on three neighbouring pairs: B7 once per
+   pair, against plain, its device time per call and per batch, the warps
+   against the CPU run;
+15. ``match.method="l2pre"`` and ``match.distance="l2"`` at 4 x 512x384
+   (B4 and B5 bypassed, as in the JAX package): the chain, the canvas
+   against the CPU run, the ratio-test decisions that differ from exact
+   L1 on the edges and the graph counts, and the device time of each
+   strategy per edge beside B4's.
 
-In phases 4, 5, 8-11 and 12-13 every launch count is set to 0 just before
+In phases 4, 5, 8-11 and 12-15 every launch count is set to 0 just before
 the path runs and read just after; each path must launch each of its
 kernels (B7, the one-direction 2-NN, belongs to the matcher API of phase 6
-only, and each path runs one of B6's two branches).
+and to the batched registration of phase 14, and each path runs one of
+B6's two branches).
 
 A redesigned kernel is timed beside its earlier design, from an earlier
 commit, by ``computervisionimagestich2_tpu_torch/tools/kernel_ab.py``.
@@ -157,7 +174,8 @@ B6_BRANCH = {"bilinear": "warp_image", "projective": "warp_image_projective"}
 # timed alone (``device_ms``); in the profile of a whole stitch other code's
 # memsets carry the same key, so ``profile_run`` books the kernels only
 BESIDE_KERNELS = {"detect_compact": ("Memset",)}
-OFF_MAIN_PATH = {"l1_two_nearest"}  # B7: the matcher API (phase 6) only
+# B7: the matcher API (phase 6) and the batched registration (phase 14)
+OFF_MAIN_PATH = {"l1_two_nearest"}
 CHAIN_OFF_PATH = OFF_MAIN_PATH | {"detect_compact", "pair_match_counts"}
 
 
@@ -283,7 +301,7 @@ def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
     after one warm-up: the device work alone, without the host's gaps
     between launches. The profiler now and then drops part of a short
     window, so a window counts only if it holds a whole number of matching
-    device events per call, at least one; after three windows without one,
+    device events per call, at least one; after five windows without one,
     None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -292,7 +310,7 @@ def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
         keys = DEVICE_KERNELS[name] + BESIDE_KERNELS.get(name, ())
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -318,9 +336,11 @@ def kernel_ms(fn, name: str) -> dict:
 
 class Recorder:
     """Wraps each kernel wrapper at the module attribute the main path
-    calls it through, and keeps the arguments of every call (``calls``)
-    and of the first (``args``). ``names``: the wrappers to record (all
-    by default)."""
+    calls it through, and keeps the positional arguments of every call
+    (``calls``) and of the first (``args``). ``names``: the wrappers to
+    record (by default those of the default stitch path: all but B7). The
+    matchers' strategy keywords pass through unrecorded: exact L1, the
+    only one the kernels run, is the wrappers' default."""
 
     def __init__(self, names=None):
         from computervisionimagestich2_tpu_torch.models import compose
@@ -333,9 +353,11 @@ class Recorder:
             "sift_descriptors": (sift_walks, "descriptors"),
             "l1_two_nearest_bidir": (distance, "two_nearest_bidir"),
             "pair_match_counts": (distance, "pair_match_counts"),
-            "warp_image": (compose, "warp_image")}
-        if names is not None:
-            self.sites = {n: self.sites[n] for n in names}
+            "warp_image": (compose, "warp_image"),
+            "l1_two_nearest": (distance, "two_nearest")}
+        if names is None:  # the default path's wrappers
+            names = [n for n in self.sites if n not in OFF_MAIN_PATH]
+        self.sites = {n: self.sites[n] for n in names}
         self.args: dict[str, tuple] = {}
         self.calls: dict[str, list] = {name: [] for name in self.sites}
         self._orig = {}
@@ -345,10 +367,10 @@ class Recorder:
             fn = getattr(mod, attr)
             self._orig[name] = fn
 
-            def wrapped(*args, _fn=fn, _name=name):
+            def wrapped(*args, _fn=fn, _name=name, **kw):
                 self.args.setdefault(_name, args)
                 self.calls[_name].append(args)
-                return _fn(*args)
+                return _fn(*args, **kw)
             setattr(mod, attr, wrapped)
         return self
 
@@ -375,15 +397,21 @@ def record_ordering(stitcher) -> dict:
     return seen
 
 
+def graph_edges(seen: dict) -> list:
+    """The undirected edges of the adjacency graph discovery found."""
+    adj = seen["adj"]
+    return [list(e) for e in sorted({tuple(sorted((i, j)))
+                                     for i, row in enumerate(adj)
+                                     for j, a in enumerate(row) if a})]
+
+
 def check_chain(seen: dict) -> list:
     """Graph discovery on the scrambled crops must find the scene's chain:
     three edges, each between crops that neighbour in the scene."""
-    adj = seen["adj"]
-    edges = sorted({tuple(sorted((i, j))) for i, row in enumerate(adj)
-                    for j, a in enumerate(row) if a})
+    edges = graph_edges(seen)
     assert len(edges) == 3, edges
     assert all(abs(SCRAMBLE[i] - SCRAMBLE[j]) == 1 for i, j in edges), edges
-    return [list(e) for e in edges]
+    return edges
 
 
 def near_ratio(desc, valid, pairs, ratio: float) -> list:
@@ -915,16 +943,23 @@ def b6_extra(calls: list) -> dict:
 
 
 def profile_run(stitcher, images) -> dict:
-    """One warm stitch under ``torch.profiler``: device time and launches
-    per kernel of the port (by ``DEVICE_KERNELS``), all device kernels and
-    the host-to-device copies among them, the device's busy time (kernels
-    and copies) against the wall."""
+    """One warm stitch under ``torch.profiler`` (``profile_call``)."""
+    return profile_call(lambda: stitcher.stitch(images),
+                        OFF_MAIN_PATH | off_branch(stitcher.config.warp_model))
+
+
+def profile_call(fn, off) -> dict:
+    """One warm call of ``fn`` (which synchronises the card) under
+    ``torch.profiler``: device time and launches per kernel of the port
+    (by ``DEVICE_KERNELS``; every one not in ``off`` must have run), all
+    device kernels and the host-to-device copies among them, the device's
+    busy time (kernels and copies) against the wall."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        stitcher.stitch(images)
+        fn()
         wall = time.perf_counter() - t
     dev = _device_events(prof)
     busy_ms = sum(_dev_us(e) for e in dev) / 1e3
@@ -940,7 +975,6 @@ def profile_run(stitcher, images) -> dict:
            "top": sorted(((e.key[:80], _dev_us(e) / 1e3, e.count)
                           for e in dev), key=lambda x: -x[1])[:12],
            "kernels": per}
-    off = OFF_MAIN_PATH | off_branch(stitcher.config.warp_model)
     assert busy_ms > 0 and all(per[n]["ms"] > 0 for n in per
                                if n not in off), out
     return out
@@ -1185,12 +1219,15 @@ def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
     return rep
 
 
-def stitch_phase(images, config, cpu: str = "full", record=()) -> tuple:
+def stitch_phase(images, config, cpu: str = "full", record=(),
+                 off_path=(), chain: bool = True) -> tuple:
     """One configuration's stitch of scrambled crops on the card: graph
-    discovery finds the scene's chain; a cold run (recording the calls of
-    the wrappers ``record``, the SIFT telemetry and the last blend's
-    arguments) and a warm run with its launch counts (every kernel of the
-    path, B4 and B6's branch of ``config.warp_model`` once per edge); no
+    discovery finds the scene's chain (with ``chain``; else the edges it
+    finds are recorded, beside the CPU run's); a cold run (recording the
+    calls of the wrappers ``record``, the SIFT telemetry and the last
+    blend's arguments) and a warm run with its launch counts (every kernel
+    of the path, none of ``off_path``, B4 unless off the path and B6's
+    branch of ``config.warp_model`` once per stitched image); no
     ``match_overflow`` is logged; the canvas against the port's CPU run
     (``cpu="full"``: from the images; ``"resumed"``: on the features the
     card's run dumped, SIFT skipped). Returns (report, recorder, stitcher,
@@ -1232,10 +1269,13 @@ def stitch_phase(images, config, cpu: str = "full", record=()) -> tuple:
         finally:
             obs.warn, stm.blend_edge, stm.sift_extract_stats = (
                 warn, blend, sift)
-        rep["edges"], rep["start"] = check_chain(seen), seen["start"]
-        n_edges = len(rep["edges"])
-        check_launches(launches, b4=n_edges, model=config.warp_model)
-        assert launches[B6_BRANCH[config.warp_model]] == n_edges, launches
+        rep["edges"] = check_chain(seen) if chain else graph_edges(seen)
+        rep["start"] = seen["start"]
+        n_stitched = len(images) - 1  # a spanning tree ("skip" revisits)
+        check_launches(launches, off_path, model=config.warp_model,
+                       b4=None if "l1_two_nearest_bidir" in off_path
+                       else n_stitched)
+        assert launches[B6_BRANCH[config.warp_model]] == n_stitched, launches
         assert "match_overflow" not in warned, warned
         t = time.perf_counter()
         if cpu == "resumed":
@@ -1243,10 +1283,12 @@ def stitch_phase(images, config, cpu: str = "full", record=()) -> tuple:
             st_cpu = stm.Stitcher(config, device="cpu",
                                   artifact_dir=f"{d}/cpu")
             st_cpu.prepare = None  # a resume must not run SIFT
-            out_cpu = st_cpu.stitch(images, resume=True)
         else:
-            out_cpu = stm.Stitcher(config, device="cpu").stitch(images)
+            st_cpu = stm.Stitcher(config, device="cpu")
+        seen_cpu = record_ordering(st_cpu)
+        out_cpu = st_cpu.stitch(images, resume=cpu == "resumed")
         rep["cpu_s"] = time.perf_counter() - t
+        rep["cpu_edges"] = graph_edges(seen_cpu)
     rep.update(canvas=list(out.shape), cpu_canvas=list(out_cpu.shape),
                cpu_run=cpu, mad_vs_cpu=canvas_vs_cpu(out, out_cpu),
                stage_s_warm=dict(st.stage_times), launches=launches,
@@ -1413,6 +1455,288 @@ def stream_phase(config, h: int, w: int, n_frames: int, scale: int,
             "launches": launches, "per_frame": per,
             "two_frames_mad_vs_cpu": mad, "two_frames_s": two_s,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+BATCH_SEEDS = (0, 3)  # the batch's two panoramas: "Input/" and "Input2/"
+
+
+def u8(t) -> np.ndarray:
+    """A u8-valued float canvas (a tensor on any device) as u8 numpy."""
+    return t.cpu().numpy().astype(np.uint8)
+
+
+def batched_phase(h: int, w: int, step: int, scale: int,
+                  cpu_check: bool) -> dict:
+    """Phase 14 at one frame size: ``batched_stitch_chain`` (BASELINE
+    config 3) on B = 2 panoramas of four crops in scene order, one from
+    each of ``BATCH_SEEDS``, on the default fixed canvas. A cold batch,
+    then a warm one with its launch counts (B1 once per image, B4 and B6
+    once per edge, B5 and B7 never); the median wall of three warm batches,
+    one under ``torch.profiler`` (busy, idle), the peak memory of one;
+    each panorama equal to ``_stitch_one_fixed`` on it alone, bit for bit;
+    no ``batched_canvas_overflow``; which blend gates the canvas engages.
+    With ``cpu_check``: each canvas against the CPU batch of the port
+    (MAD <= 3 u8 levels), and each content extent equal to the canvas of
+    the chain-ordered ``Stitcher`` (exact canvas, no enhancement) on the
+    same images."""
+    import dataclasses
+
+    import torch
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.models import blender
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+    from computervisionimagestich2_tpu_torch.ops import _native
+    from computervisionimagestich2_tpu_torch.parallel import batched
+    from computervisionimagestich2_tpu_torch.utils import obs
+
+    cfg = DEFAULT_CONFIG
+    pans = np.stack([np.stack(crops(h, w, step, scale, seed=sd))
+                     for sd in BATCH_SEEDS])
+    n_pan, k = pans.shape[:2]
+    canvas = batched.default_canvas(h, w, k, cfg)
+    warned, warn = [], obs.warn
+
+    def warn_rec(stage, **kv):
+        warned.append(stage)
+        warn(stage, **kv)
+
+    def run_batch():
+        t = time.perf_counter()
+        out, plans = batched.batched_stitch_chain(pans, cfg, device="cuda")
+        torch.cuda.synchronize()
+        return out, plans, time.perf_counter() - t
+
+    obs.warn = warn_rec
+    try:
+        _, _, cold_s = run_batch()
+        _native.reset_launch_counts()
+        out, plans, t1 = run_batch()
+        launches = _native.launch_counts()
+        warm = [t1] + [run_batch()[2] for _ in range(2)]
+    finally:
+        obs.warn = warn
+    n_edges = n_pan * (k - 1)
+    check_launches(launches, {"pair_match_counts"}, b4=n_edges)
+    assert launches["detect_compact"] == n_pan * k, launches
+    assert launches["warp_image"] == n_edges, launches
+    assert "batched_canvas_overflow" not in warned, warned
+    assert tuple(out.shape) == (n_pan, *canvas, 3), out.shape
+    seq = batched.chain_edge_seq(k)
+    for i in range(n_pan):
+        one, plan = batched._stitch_one_fixed(
+            torch.as_tensor(pans[i], device="cuda"), cfg, canvas, seq)
+        assert torch.equal(out[i], one), ("batch != one at a time", i)
+        assert np.array_equal(plans[i], plan), ("plans differ", i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_batch()
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_call(run_batch, OFF_MAIN_PATH | {"pair_match_counts"}
+                        | off_branch(cfg.warp_model))
+    rep = {"panoramas": int(n_pan), "images_per_panorama": int(k),
+           "frame": [h, w], "seeds": list(BATCH_SEEDS),
+           "canvas": list(canvas), "canvas_mpx": canvas[0] * canvas[1] / 1e6,
+           "blend_bf16": blender.resolve_dtype(
+               cfg.blend.dtype, *canvas, cfg.blend.bf16_auto_area) == "bf16",
+           "blend_seam_band": blender.seam_auto_engaged(cfg.blend, *canvas),
+           "content_wh": plans[:, -1, 20:22].astype(int).tolist(),
+           "match_dropped": plans[:, :, 22].astype(int).tolist(),
+           "cold_s": cold_s, "warm_median_s": statistics.median(warm),
+           "warm_s": warm, "launches": launches,
+           "equals_one_at_a_time": True, "warnings": sorted(set(warned)),
+           "peak_mem_gib": peak / 2 ** 30, "profile": prof}
+    if cpu_check:
+        chain = dataclasses.replace(cfg, ordering="chain")
+        for i in range(n_pan):
+            ex = stm.Stitcher(dataclasses.replace(
+                chain, enhance=dataclasses.replace(cfg.enhance,
+                                                   enabled=False)),
+                device="cuda").stitch(list(pans[i]))
+            assert plans[i, -1, 20] == ex.shape[1], (plans[i, -1], ex.shape)
+            assert plans[i, -1, 21] == ex.shape[0], (plans[i, -1], ex.shape)
+        t = time.perf_counter()
+        ref, ref_plans = batched.batched_stitch_chain(pans, cfg, device="cpu")
+        rep["cpu_s"] = time.perf_counter() - t
+        rep["mad_vs_cpu"] = [canvas_vs_cpu(u8(out[i]), u8(ref[i]))
+                             for i in range(n_pan)]
+        rep["cpu_content_wh"] = ref_plans[:, -1, 20:22].astype(int).tolist()
+        rep["content_equals_chain_stitcher"] = True
+    return rep
+
+
+def register_phase(scene_order, b7: dict) -> dict:
+    """Phase 14's registration: ``batched_pairwise_register`` on the B = 3
+    neighbouring pairs of the 512x384 crops (luma, unprojected). A cold
+    call, then one with its launch counts (B7 once per pair, B1 once per
+    image, B4, B5 and B6 never); B7 against its plain version on each of
+    its calls (d1 / d2 rtol 1e-5, i1 equal where the 2-NN gap is clear);
+    its device time per call (``kernel_ms``) and per batch (their sum); the
+    warps and inlier counts against the port's CPU run at
+    tests/test_parallel.py's tolerances (an 8 x 8 grid within 2 px, counts
+    within 10% + 2). Fills B7's kernels row with the batch's numbers."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.ops import _native, distance
+    from computervisionimagestich2_tpu_torch.ops.color import to_gray
+    from computervisionimagestich2_tpu_torch.ops.warp import warp_points
+    from computervisionimagestich2_tpu_torch.parallel import batched
+
+    cfg = DEFAULT_CONFIG
+    gray = [to_gray(torch.as_tensor(c, device="cuda").float())
+            for c in scene_order]
+    ga, gb = torch.stack(gray[:-1]), torch.stack(gray[1:])
+    n = ga.shape[0]
+
+    def register():
+        out = batched.batched_pairwise_register(ga, gb, cfg, "cuda")
+        torch.cuda.synchronize()
+        return out
+
+    register()
+    _native.reset_launch_counts()
+    with Recorder(("l1_two_nearest",)) as rec:
+        t = time.perf_counter()
+        coeffs, inliers = register()
+        secs = time.perf_counter() - t
+    launches = _native.launch_counts()
+    on_path = {"detect_compact", "sift_orientation_hist", "sift_descriptors",
+               "l1_two_nearest"}
+    assert all((c > 0) == (k in on_path) for k, c in launches.items()), \
+        launches
+    assert launches["l1_two_nearest"] == n, launches
+    assert launches["detect_compact"] == 2 * n, launches
+    calls = rec.calls["l1_two_nearest"]
+    err = 0.0
+    for a in calls:
+        k, p = distance.two_nearest(*a), distance.two_nearest_plain(*a)
+        ok = a[2]
+        torch.testing.assert_close(k[0][ok], p[0][ok], rtol=1e-5, atol=0)
+        torch.testing.assert_close(k[1][ok], p[1][ok], rtol=1e-5, atol=0)
+        clear = ok & ((p[1] - p[0]) > 1e-4 * p[0])
+        assert torch.equal(k[2][clear], p[2][clear])
+        err = max(err, float((k[0][ok] - p[0][ok]).abs().max()))
+    per_call = [kernel_ms(lambda a=a: distance.two_nearest(*a),
+                          "l1_two_nearest") for a in calls]
+    t = time.perf_counter()
+    ref, ref_n = batched.batched_pairwise_register(ga.cpu(), gb.cpu(), cfg,
+                                                   "cpu")
+    cpu_s = time.perf_counter() - t
+    w, h = ga.shape[2], ga.shape[1]
+    px, py = (g.ravel() for g in torch.meshgrid(
+        torch.linspace(4, w - 4, 8), torch.linspace(4, h - 4, 8),
+        indexing="xy"))
+    dev_px = []
+    for i in range(n):
+        xk, yk = warp_points(coeffs[i].cpu(), px, py)
+        xr, yr = warp_points(ref[i], px, py)
+        dev_px.append(float(torch.hypot(xk - xr, yk - yr).max()))
+    assert max(dev_px) < 2.0, dev_px
+    assert int((inliers.cpu() - ref_n).abs().max()) <= \
+        0.1 * int(ref_n.max()) + 2, (inliers, ref_n)
+    b7_batch_ms = sum(c["ms"] for c in per_call)
+    b7.update(launches=launches["l1_two_nearest"],
+              launches_per_batch=launches["l1_two_nearest"],
+              device_ms_per_batch=b7_batch_ms,
+              bound_ms_per_batch=sum(kernel_bound("l1_two_nearest", a)[
+                  "bound_ms"] for a in calls),
+              batch_max_abs_err=err,
+              launches_note="batched_pairwise_register, 3 pairs at "
+                            "512x384 (phase 14)")
+    b7["share_of_bound_per_batch"] = (b7["bound_ms_per_batch"] / b7_batch_ms
+                                      if b7_batch_ms else None)
+    return {"pairs": int(n), "frame": list(ga.shape[1:]),
+            "register_s": secs, "launches": launches,
+            "b7_max_abs_err": err, "b7_per_call": per_call,
+            "b7_queries_refs": [[int(a[2].sum()), int(a[3].sum())]
+                                for a in calls],
+            "b7_device_ms_per_batch": b7_batch_ms,
+            "inliers": inliers.tolist(), "cpu_inliers": ref_n.tolist(),
+            "warp_vs_cpu_px": dev_px, "cpu_s": cpu_s}
+
+
+def decision_diffs(feats, pairs, distance_: str, method: str,
+                   m: int) -> dict:
+    """Ratio-test decisions of (distance_, method, m) against exact L1 on
+    the card (B7) for every (query image, reference image) of ``pairs``:
+    the decisions that differ and, among queries both keep, the nearest
+    indices that differ."""
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    ratio = DEFAULT_CONFIG.match.ratio_threshold
+    out = {"decisions": 0, "nearest": 0, "queries": 0, "exact_matches": 0}
+    for q, r in pairs:
+        a = (feats.desc[q], feats.desc[r], feats.valid[q], feats.valid[r])
+        ok_e, i_e = distance.ratio_match(*a, ratio)
+        ok_s, i_s = distance.ratio_match(*a, ratio, distance_, method, m)
+        out["decisions"] += int((ok_e != ok_s).sum())
+        out["nearest"] += int((ok_e & ok_s & (i_e != i_s)).sum())
+        out["queries"] += int(a[2].sum())
+        out["exact_matches"] += int(ok_e.sum())
+    return out
+
+
+def match_strategy_phase(images) -> dict:
+    """Phase 15: ``match.method="l2pre"`` and ``match.distance="l2"`` at
+    4 x 512x384 on the scrambled crops (``stitch_phase``: B4 and B5
+    bypassed, as in the JAX package; l2pre must find the chain, l2's graph
+    is recorded beside the CPU run's; the canvas against the port's CPU
+    run on the card's features); each strategy's decision diffs
+    against exact L1 over the chain's 3 edges x 2 directions (``l2pre_m``)
+    and the 12 directed count pairs (``l2pre_m_counts``); and per edge,
+    both directions on the stitch's descriptors, the strategy's device
+    time (every device kernel it runs, ``torch.profiler``) beside B4's."""
+    import dataclasses
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    mcfg = DEFAULT_CONFIG.match
+    # the scene's chain: images whose crops neighbour in the scene
+    edges = [(i, j) for i in range(len(images)) for j in range(i + 1,
+             len(images)) if abs(SCRAMBLE[i] - SCRAMBLE[j]) == 1]
+    rep = {}
+    for label, change in (("l2pre", dict(method="l2pre")),
+                          ("l2", dict(distance="l2"))):
+        t = time.perf_counter()
+        cfg = dataclasses.replace(DEFAULT_CONFIG, match=dataclasses.replace(
+            mcfg, **change))
+        # squared L2 under the L1 ratio of 0.5 (0.71 on distances) passes
+        # 20 matches between crops that do not overlap, in the JAX package
+        # too: graph discovery finds more than the chain
+        r, _, st, _ = stitch_phase(images, cfg, cpu="resumed", off_path={
+            "l1_two_nearest_bidir", "pair_match_counts"},
+            chain=label == "l2pre")
+        feats = st._matching_feats()
+        n = feats.desc.shape[0]
+        dist, meth = cfg.match.distance, cfg.match.method
+        r["diffs_edges"] = decision_diffs(
+            feats, [p for i, j in edges for p in ((i, j), (j, i))], dist,
+            meth, cfg.match.l2pre_m)
+        r["diffs_counts"] = decision_diffs(
+            feats, [(i, j) for i in range(n) for j in range(n) if i != j],
+            dist, meth, cfg.match.l2pre_m_counts)
+        per_edge = []
+        for i, j in edges:
+            a = (feats.desc[j], feats.desc[i], feats.valid[j], feats.valid[i])
+            per_edge.append({
+                "edge": [i, j], "live": [int(a[2].sum()), int(a[3].sum())],
+                "b4_ms": device_ms(lambda a=a: distance.two_nearest_bidir(*a),
+                                   "l1_two_nearest_bidir"),
+                "b4_ms_events": cuda_ms(
+                    lambda a=a: distance.two_nearest_bidir(*a)),
+                f"{label}_ms": device_ms(
+                    lambda a=a: distance.two_nearest_bidir(
+                        *a, dist, meth, cfg.match.l2pre_m), "", keys=("",)),
+                f"{label}_ms_events": cuda_ms(
+                    lambda a=a: distance.two_nearest_bidir(
+                        *a, dist, meth, cfg.match.l2pre_m))})
+        r["per_edge_both_directions"] = per_edge
+        r["strategy_s"] = time.perf_counter() - t
+        rep[label] = r
+    return rep
 
 
 def main() -> int:
@@ -1686,6 +2010,19 @@ def main() -> int:
         DEFAULT_CONFIG.blend, blur_impl="vanvliet"))
     rep, _, _, last_blend = stitch_phase(images_512, vv, cpu="resumed")
     emit("vanvliet_512x384", t, **rep, one_blend=blend_cost(last_blend))
+
+    # -- 14. batched panoramas (BASELINE config 3) and batched registration
+    t = time.perf_counter()
+    emit("batched_512x384", t, **batched_phase(512, 384, 224, 2, True))
+    t = time.perf_counter()
+    b7 = next(k for k in kernels if k["name"] == "l1_two_nearest")
+    emit("batched_register_512x384", t, **register_phase(scene_order, b7))
+    t = time.perf_counter()
+    emit("batched_1440x1080", t, **batched_phase(1440, 1080, 630, 6, False))
+
+    # -- 15. match.method="l2pre" and match.distance="l2" at 4 x 512x384
+    t = time.perf_counter()
+    emit("match_strategies_512x384", t, **match_strategy_phase(images_512))
 
     assert len(kernels) == len(KERNELS), [k["name"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -111,8 +111,7 @@ def make_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="L1 2-NN strategy: 'exact' = every pair (parity "
                         "mode, and what 'auto' means here); 'l2pre' = L2 "
-                        "candidate prefilter + exact-L1 rescore (not "
-                        "ported)")
+                        "candidate prefilter + exact-L1 rescore")
     p.add_argument("--l2pre-m", type=int, default=0, metavar="M",
                    help="candidates rescored per query for l2pre (0 = "
                         "config defaults; sets both when given)")

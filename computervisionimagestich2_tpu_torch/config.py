@@ -22,17 +22,19 @@ L1 matching) and ``SLICE_CONFIG``, the chain-ordered path with the dense
 (``planned=False``), bucketed canvases (``exact_canvas=False``), the
 per-edge color transfer (``color_transfer=True``), projective warps
 (``warp_model="projective"``), an upsampled first octave
-(``sift.o_min=-1``), the scalar luma gain (``blend.gain_mode="luma"``) and
-the Van Vliet blend blur (``blend.blur_impl="vanvliet"``).
-``check_supported`` raises ``NotImplementedError`` for any switch outside
-them, naming the ROADMAP item that ports it.
+(``sift.o_min=-1``), the scalar luma gain (``blend.gain_mode="luma"``),
+the Van Vliet blend blur (``blend.blur_impl="vanvliet"``), the
+L2-prefiltered matcher (``match.method="l2pre"``) and squared-L2 matching
+(``match.distance="l2"``). ``check_supported`` raises
+``NotImplementedError`` for the TPU-only switches it lists, naming the
+ROADMAP entry that says why they are not ported.
 
 ``match.method="auto"`` resolves to exact L1 here. That is what the JAX
 package itself picks on any backend other than a TPU
 (``computervisionimagestich2_tpu/ops/distance.py::_l2pre_enabled``); on a
-TPU its default would be the MXU-prefiltered ``"l2pre"``, which the port
-does not implement (A14). So the port's default follows the JAX package's
-CPU and GPU decisions, not its TPU ones.
+TPU its default is the MXU-prefiltered ``"l2pre"``, which the port runs
+only when asked for by name. So the port's default follows the JAX
+package's CPU and GPU decisions, not its TPU ones.
 """
 from __future__ import annotations
 
@@ -113,12 +115,12 @@ class MatchConfig:
     # (vector<ImgPair>), and overflow is reported (match_overflow).
     max_matches: int = 4096
     # 2-NN backend of the JAX package ("auto": its Pallas kernel on a
-    # TPU). The port always matches with kernel B4/B7 on the card.
+    # TPU). The port's exact L1 matches with kernel B4/B7 on the card.
     pallas: str = "auto"
     # L1 2-NN strategy: "exact" scores every descriptor pair; "l2pre"
     # (the JAX package's TPU default under "auto") keeps the l2pre_m
     # nearest by L2 and rescores those by exact L1. "auto" = exact off a
-    # TPU, and always in the port.
+    # TPU, and always in the port, which runs "l2pre" when named.
     method: str = "auto"
     l2pre_m: int = 12             # l2pre candidates rescored per query
     l2pre_m_counts: int = 8       # the same for the ordering stage's counts
@@ -256,8 +258,6 @@ def check_supported(cfg: StitchConfig) -> None:
     """Raise NotImplementedError if ``cfg`` leaves the ported
     configurations."""
     unsupported = [
-        (cfg.match.method == "l2pre", "match.method='l2pre'", "A14"),
-        (cfg.match.distance != "l1", "match.distance='l2'", "A14"),
         (cfg.blend.blur_impl == "fir_fused", "blend.blur_impl='fir_fused'",
          "§A 'Do not port' (a TPU-only fused blur)"),
         (cfg.sift.walk_dtype != "f32", "sift.walk_dtype='bf16'",

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.color import rgb_to_ycbcr, ycbcr_to_rgb
+from ..ops.warp import trunc_u8
 
 
 def _equalize_lut(channel_u8: torch.Tensor) -> torch.Tensor:
@@ -33,6 +34,17 @@ def equalize_color(img: torch.Tensor, compat_luma: bool = True) -> torch.Tensor:
     y_eq = lut[y.clamp(0, 255).long()]
     out = torch.stack([y_eq, ycbcr[..., 1], ycbcr[..., 2]], dim=-1)
     return ycbcr_to_rgb(out, to_u8=True)
+
+
+def equalize_gray(img: torch.Tensor) -> torch.Tensor:
+    """Gray-mode equalization (mode=0). img: [H, W, 3] float32 RGB; returns
+    the equalized [H, W] luma on the u8 grid. The reference reads channels
+    as (b, g, r) = (0, 1, 2) here (equalization.cpp:32-36), so luma = c0 *
+    0.0722 + c1 * 0.7152 + c2 * 0.2126 on RGB-ordered data, kept as
+    behaviour."""
+    gray = trunc_u8(0.0722 * img[..., 0] + 0.7152 * img[..., 1]
+                    + 0.2126 * img[..., 2])
+    return _equalize_lut(gray)[gray.long()]
 
 
 def equalize_and_mix(result: torch.Tensor, compat_luma: bool = True,

@@ -15,10 +15,11 @@ from __future__ import annotations
 
 import torch
 
+from ..config import RansacConfig
 from ..core.types import MatchPairs
 from ..ops import rng
 from ..ops.solve import solve_projective, solve_warp
-from ..ops.warp import warp_points
+from ..ops.warp import warp_points, warp_xy
 
 
 def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
@@ -110,3 +111,23 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
         mask = torch.where(f_ok, mask, inliers[best])
         count = torch.where(f_ok, count, counts[best])
     return coeffs, mask, count
+
+
+def ransac_config_call(pairs: MatchPairs, cfg: RansacConfig,
+                       key: torch.Tensor | None = None, salt: int = 0):
+    """``ransac_warp`` (bilinear) under a ``RansacConfig``: the key (by
+    default ``prng_key(cfg.seed)``) folded with ``salt`` first."""
+    if key is None:
+        key = rng.prng_key(cfg.seed)
+    key = rng.fold_in(key, salt)
+    return ransac_warp(pairs, key, cfg.n_hypotheses, cfg.threshold,
+                       cfg.n_sample, lo_iters=cfg.lo_iters)
+
+
+def reprojection_errors(coeffs: torch.Tensor,
+                        pairs: MatchPairs) -> torch.Tensor:
+    """Per-pair reprojection L2 of the bilinear model ``coeffs`` (the
+    BASELINE.json parity metric): |warp(src) - dst| for every pair slot."""
+    xw, yw = warp_xy(coeffs, pairs.src_xy[:, 0], pairs.src_xy[:, 1])
+    return torch.sqrt((xw - pairs.dst_xy[:, 0]) ** 2
+                      + (yw - pairs.dst_xy[:, 1]) ** 2)

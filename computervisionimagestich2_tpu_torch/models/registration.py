@@ -7,7 +7,7 @@ and backward RANSAC, the canvas bounds, and the feature-coordinate
 updates. ``plan_edges`` runs every edge of the stitch order as a Python
 loop of device work and reads the [E, 23] plan back to the host once.
 ``all_pairs_match_counts`` gives graph ordering its [N, N] match counts
-from one launch of kernel B5.
+from one launch of kernel B5 (under exact L1).
 """
 from __future__ import annotations
 
@@ -42,7 +42,9 @@ def register_edge(feats_src: Features, feats_dst: Features,
     corners more than 4 image diagonals outside the matched region."""
     mcfg = cfg.match
     s2d, d2s = match_features_bidir(feats_src, feats_dst,
-                                    mcfg.ratio_threshold, mcfg.max_matches)
+                                    mcfg.ratio_threshold, mcfg.distance,
+                                    mcfg.max_matches, mcfg.method,
+                                    mcfg.l2pre_m)
     n_s2d, n_d2s = s2d.n_raw, d2s.n_raw
     use_s2d = n_s2d > n_d2s
     s2d_final = _pick(use_s2d, s2d, d2s.swapped())
@@ -154,16 +156,30 @@ def all_pairs_match_counts(desc: torch.Tensor, valid: torch.Tensor,
     desc: [N, CAP, 128] stacked descriptors; valid: [N, CAP]. Returns
     [N, N] int32 on the device with count[i, j] = |getImgPair(i, j)|
     (queries = j's descriptors against i's reference set); the diagonal is
-    0. Both directions of every i<j pair come from one call of
-    ``distance.pair_match_counts`` (kernel B5 on CUDA tensors)."""
+    0. Under exact L1 both directions of every i<j pair come from one call
+    of ``distance.pair_match_counts`` (kernel B5 on CUDA tensors). Under
+    ``method="l2pre"`` (with ``l2pre_m_counts`` candidates) or
+    ``distance="l2"`` each pair runs ``ratio_match_bidir``, as the JAX
+    package's scan does (its ``registration.py:243-257``)."""
     n = desc.shape[0]
     out = torch.zeros((n, n), dtype=torch.int32, device=desc.device)
     if n <= 1:
         return out
+    mcfg = cfg.match
     pairs = torch.tensor([(i, j) for i in range(n) for j in range(i + 1, n)],
                          dtype=torch.int32, device=desc.device)
-    counts = distance.pair_match_counts(desc, valid, pairs,
-                                        cfg.match.ratio_threshold)
+    if mcfg.distance == "l1" and mcfg.method != "l2pre":
+        counts = distance.pair_match_counts(desc, valid, pairs,
+                                            mcfg.ratio_threshold)
+    else:
+        rows = []
+        for i, j in pairs.tolist():
+            okq, _, okr, _ = distance.ratio_match_bidir(
+                desc[j], desc[i], valid[j], valid[i], mcfg.ratio_threshold,
+                mcfg.distance, mcfg.method, mcfg.l2pre_m_counts)
+            rows.append(torch.stack([okq.sum(dtype=torch.int32),
+                                     okr.sum(dtype=torch.int32)]))
+        counts = torch.stack(rows)
     i, j = pairs[:, 0].long(), pairs[:, 1].long()
     out[i, j] = counts[:, 0]
     out[j, i] = counts[:, 1]

@@ -27,6 +27,8 @@ of device stages:
 
 ``artifact_dir`` dumps the features, the canvas and a manifest;
 ``stitch(..., resume=True)`` reloads the features instead of running SIFT.
+With ``PANORAMA_TPU_TRACE`` set, the features and stitching stages are
+traced (``utils/obs.py::trace``, ``torch.profiler``).
 Images are uploaded as u8 to ``device`` and the panorama comes back as a
 u8 numpy array; a CUDA run synchronises before it returns.
 """
@@ -119,6 +121,19 @@ def directed_adjacency(counts, threshold: int) -> list[list[bool]]:
     return adj
 
 
+def live_prefix(fs: Features) -> Features:
+    """Stacked features [N, CAP, ...] trimmed to the live prefix, rounded up
+    to 512 slots: valid masks are prefix-compacted, so the dropped tail is
+    dead slots only and results are unchanged. One readback of the live
+    counts."""
+    cap = fs.desc.shape[1]
+    live = int(fs.valid.sum(dim=1).max())
+    eff = -(-max(live, 512) // 512) * 512
+    if eff >= cap:
+        return fs
+    return Features(*(t[:, :eff].contiguous() for t in fs))
+
+
 class Stitcher:
     """Panorama stitcher with the reference's semantics, on ``device``
     ("cuda" runs the CUDA kernels, "cpu" their plain PyTorch versions).
@@ -186,16 +201,8 @@ class Stitcher:
         return Features(*(torch.stack(parts) for parts in zip(*feats)))
 
     def _matching_feats(self) -> Features:
-        """Stacked features trimmed to the live prefix, rounded up to 512
-        slots: valid masks are prefix-compacted, so the dropped tail is
-        dead slots only and results are unchanged."""
-        fs = self._feats_stacked
-        cap = fs.desc.shape[1]
-        live = int(fs.valid.sum(dim=1).max())
-        eff = -(-max(live, 512) // 512) * 512
-        if eff >= cap:
-            return fs
-        return Features(*(t[:, :eff].contiguous() for t in fs))
+        """The stacked features, ``live_prefix``."""
+        return live_prefix(self._feats_stacked)
 
     # ------------------------------------------------------------- ordering
     def _match_graph(self, feats: list[Features]) -> list[list[bool]]:
@@ -216,9 +223,10 @@ class Stitcher:
                                  device=self.device)
             for i in range(n):
                 for j in range(i + 1, n):
-                    ij, ji = match_features_bidir(feats[i], feats[j],
-                                                  mcfg.ratio_threshold,
-                                                  mcfg.max_matches)
+                    ij, ji = match_features_bidir(
+                        feats[i], feats[j], mcfg.ratio_threshold,
+                        mcfg.distance, mcfg.max_matches, mcfg.method,
+                        mcfg.l2pre_m_counts)
                     counts[i, j] = ij.n_raw
                     counts[j, i] = ji.n_raw
         return directed_adjacency(counts.cpu().tolist(), mcfg.pair_threshold)
@@ -402,7 +410,7 @@ class Stitcher:
         cfg = self.config
         resumed = bool(resume and self.artifact_dir and os.path.exists(
             f"{self.artifact_dir}/features.npz"))
-        with self._timer.stage("features"):
+        with self._timer.stage("features"), obs.trace("features"):
             if resumed:
                 projected, feats = self._resume_features(images)
                 obs.log("resume", source=f"{self.artifact_dir}/features.npz")
@@ -423,7 +431,7 @@ class Stitcher:
                 start = self._middle_index(adj)
             obs.log("ordering", start=start, edges=sum(map(sum, adj)) // 2)
 
-        with self._timer.stage("stitching"):
+        with self._timer.stage("stitching"), obs.trace("stitching"):
             edge_seq = bfs_edge_seq(adj, start, cfg.graph_revisit)
             result = projected[start]
             if cfg.planned and edge_seq and self._feats_stacked is not None:

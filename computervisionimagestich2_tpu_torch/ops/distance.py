@@ -20,6 +20,14 @@ ratio-test counts of many image pairs from B4's tile pass run over the live
 tiles of every pair, chunked over the pairs within a fixed scratch budget,
 with ``pair_match_counts_plain`` beside it and that plan in plain PyTorch as
 ``pair_match_counts_tiled_plain``.
+
+``MatchConfig``'s other strategies are the JAX package's XLA formulations
+in plain PyTorch, on either device: ``method="l2pre"``
+(``_l2pre_one_direction``: one f32 matmul of squared-L2 candidates, the
+first ``l2pre_m`` per query in (distance, index) order, then an exact-L1
+rescore of those only, ``_l1_rescore``) and ``distance="l2"``
+(``pairwise_l2sq`` and two min-reductions). ``method="auto"`` is exact L1,
+as the JAX package decides off a TPU.
 """
 from __future__ import annotations
 
@@ -46,24 +54,103 @@ def two_nearest_plain(qry: torch.Tensor, ref: torch.Tensor,
     for s in range(0, nb, chunk):
         e = min(nb, s + chunk)
         d = torch.sum(torch.abs(qry[s:e, None, :] - ref[None, :, :]), dim=-1)
-        d = torch.where(ref_valid[None, :], d, BIG)
-        j = torch.argmin(d, dim=1)     # first index of the minimum
-        d1[s:e] = torch.gather(d, 1, j[:, None])[:, 0]
-        d2[s:e] = torch.where(
-            torch.arange(d.shape[1], device=d.device)[None, :] == j[:, None],
-            BIG, d).min(dim=1).values
-        i1[s:e] = j
+        d1[s:e], d2[s:e], i1[s:e] = _top2(d, ref_valid[None, :])
     d1 = torch.where(qry_valid, d1, BIG)
     d2 = torch.where(qry_valid, d2, BIG)
     return d1, d2, i1
 
 
+def _strategy(distance: str, method: str) -> str | None:
+    """Which formulation a (distance, method) pair takes: None for exact
+    L1 (kernels B4 / B7 on the card), "l2pre" or "l2". The JAX package's
+    ``two_nearest`` prefilters only L1, and its "auto" is exact off a
+    TPU."""
+    if distance == "l1":
+        return "l2pre" if method == "l2pre" else None
+    if distance == "l2":
+        return "l2"
+    raise ValueError(f"unknown distance {distance!r}")
+
+
+def pairwise_l2sq(qry: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Squared-L2 distances [NQ, NR] by the matmul identity, clamped at 0:
+    (|q|^2 + |r|^2) - 2 q.r in the JAX package's order. One f32 matmul
+    (TF32 stays off, ``device.resolve_device``)."""
+    qn = torch.sum(qry * qry, dim=-1, keepdim=True)
+    rn = torch.sum(ref * ref, dim=-1, keepdim=True)
+    return torch.clamp(qn + rn.T - 2.0 * (qry @ ref.T), min=0.0)
+
+
+def _top2(d: torch.Tensor, ok: torch.Tensor):
+    """(d1, d2, j) of every row of a distance matrix, ``ok`` (broadcast to
+    it) marking the columns that may win: the first minimum is the
+    nearest, the second distance excludes only that column (a tie at d1
+    gives d2 = d1)."""
+    d = torch.where(ok, d, BIG)
+    j = torch.argmin(d, dim=1)
+    d1 = torch.gather(d, 1, j[:, None])[:, 0]
+    cols = torch.arange(d.shape[1], device=d.device)[None, :]
+    d2 = torch.where(cols == j[:, None], BIG, d).min(dim=1).values
+    return d1, d2, j
+
+
+def _top2_dense(d: torch.Tensor, qry_valid: torch.Tensor,
+                ref_valid: torch.Tensor):
+    """``_top2`` over the valid references, BIG for invalid queries."""
+    d1, d2, i1 = _top2(d, ref_valid[None, :])
+    return (torch.where(qry_valid, d1, BIG), torch.where(qry_valid, d2, BIG),
+            i1)
+
+
+def _first_m(d: torch.Tensor, m: int) -> torch.Tensor:
+    """Column indices of each row's ``m`` smallest entries in (value,
+    index) order: a stable sort, so ties go to the lower index. The JAX
+    package's ``approx_min_k`` gives this order on the CPU, where it is
+    exact; ``torch.topk`` may break ties otherwise and so change the set."""
+    return torch.sort(d, dim=1, stable=True).indices[:, :m]
+
+
+def _l1_rescore(qry: torch.Tensor, cand_desc: torch.Tensor,
+                cand_idx: torch.Tensor, cand_ok: torch.Tensor):
+    """Exact L1 top-2 over per-query candidate sets.
+
+    qry [NQ, F]; cand_desc [NQ, M, F]; cand_idx [NQ, M] global reference
+    indices; cand_ok [NQ, M] candidate validity. Returns (d1, d2, i1): the
+    first minimum in candidate order wins."""
+    d = torch.sum(torch.abs(qry[:, None, :] - cand_desc), dim=-1)
+    d1, d2, j1 = _top2(d, cand_ok)
+    return d1, d2, torch.gather(cand_idx, 1, j1[:, None])[:, 0]
+
+
+def _l2pre_one_direction(qry: torch.Tensor, ref: torch.Tensor,
+                         qry_valid: torch.Tensor, ref_valid: torch.Tensor,
+                         m: int):
+    """One direction of the L2-prefiltered L1 2-NN (``method="l2pre"``):
+    the [NQ, NR] squared-L2 matrix from one f32 matmul, invalid references
+    at BIG, the first min(m, NR) candidates of each query in (distance,
+    index) order (``_first_m``), then exact L1 over those only
+    (``_l1_rescore``). Returns (d1, d2, i1) as ``two_nearest`` does."""
+    d2sq = torch.where(ref_valid[None, :], pairwise_l2sq(qry, ref), BIG)
+    idx = _first_m(d2sq, min(m, ref.shape[0]))
+    d1, d2, i1 = _l1_rescore(qry, ref[idx], idx, ref_valid[idx])
+    return torch.where(qry_valid, d1, BIG), torch.where(qry_valid, d2, BIG), i1
+
+
 def two_nearest(qry: torch.Tensor, ref: torch.Tensor,
-                qry_valid: torch.Tensor, ref_valid: torch.Tensor):
-    """For every query descriptor, its 2 nearest reference descriptors by
-    L1: (d1, d2, i1), as ``two_nearest_plain`` returns them. Any masks are
+                qry_valid: torch.Tensor, ref_valid: torch.Tensor,
+                distance: str = "l1", method: str = "auto",
+                l2pre_m: int = 32):
+    """For every query descriptor, its 2 nearest reference descriptors:
+    (d1, d2, i1), as ``two_nearest_plain`` returns them. Any masks are
     honoured; the kernel reads them on the device, so nothing waits for the
-    host. Kernel B7 on CUDA tensors."""
+    host. Exact L1 is kernel B7 on CUDA tensors; ``method="l2pre"`` and
+    ``distance="l2"`` take their plain PyTorch formulations
+    (``_strategy``)."""
+    other = _strategy(distance, method)
+    if other == "l2pre":
+        return _l2pre_one_direction(qry, ref, qry_valid, ref_valid, l2pre_m)
+    if other == "l2":
+        return _top2_dense(pairwise_l2sq(qry, ref), qry_valid, ref_valid)
     if qry.device.type == "cpu":
         return two_nearest_plain(qry, ref, qry_valid, ref_valid)
     _native.check_cuda("two_nearest.qry", qry, torch.float32, (None, 128), 16)
@@ -131,11 +218,23 @@ def two_nearest_tiled_plain(qry: torch.Tensor, ref: torch.Tensor,
 
 
 def two_nearest_bidir(qry: torch.Tensor, ref: torch.Tensor,
-                      qry_valid: torch.Tensor, ref_valid: torch.Tensor):
+                      qry_valid: torch.Tensor, ref_valid: torch.Tensor,
+                      distance: str = "l1", method: str = "auto",
+                      l2pre_m: int = 32):
     """Both 2-NN directions: ((d1q, d2q, i1q), (d1r, d2r, i1r)), the second
     tuple with the roles of qry and ref swapped, as ``two_nearest`` returns
-    each. Kernel B4 on CUDA tensors: one distance pass serves both
-    directions; any masks are honoured and read on the device."""
+    each. Exact L1 is kernel B4 on CUDA tensors: one distance pass serves
+    both directions; any masks are honoured and read on the device. Under
+    ``method="l2pre"`` each direction runs its own prefilter; under
+    ``distance="l2"`` one squared-L2 matrix serves both."""
+    other = _strategy(distance, method)
+    if other == "l2pre":
+        return (_l2pre_one_direction(qry, ref, qry_valid, ref_valid, l2pre_m),
+                _l2pre_one_direction(ref, qry, ref_valid, qry_valid, l2pre_m))
+    if other == "l2":
+        d = pairwise_l2sq(qry, ref)
+        return (_top2_dense(d, qry_valid, ref_valid),
+                _top2_dense(d.T, ref_valid, qry_valid))
     if qry.device.type == "cpu":
         return (two_nearest_plain(qry, ref, qry_valid, ref_valid),
                 two_nearest_plain(ref, qry, ref_valid, qry_valid))
@@ -169,21 +268,26 @@ def _ratio_ok(d1: torch.Tensor, d2: torch.Tensor, valid: torch.Tensor,
 
 def ratio_match(qry: torch.Tensor, ref: torch.Tensor,
                 qry_valid: torch.Tensor, ref_valid: torch.Tensor,
-                ratio: float = 0.5):
+                ratio: float = 0.5, distance: str = "l1",
+                method: str = "auto", l2pre_m: int = 32):
     """Lowe ratio test, one direction: keep queries whose nearest / second
     distance ratio is < ratio. Returns (match_mask [NB], nearest_ref_index
     [NB])."""
-    d1, d2, i1 = two_nearest(qry, ref, qry_valid, ref_valid)
+    d1, d2, i1 = two_nearest(qry, ref, qry_valid, ref_valid,
+                             distance=distance, method=method,
+                             l2pre_m=l2pre_m)
     return _ratio_ok(d1, d2, qry_valid, ratio), i1
 
 
 def ratio_match_bidir(qry: torch.Tensor, ref: torch.Tensor,
                       qry_valid: torch.Tensor, ref_valid: torch.Tensor,
-                      ratio: float = 0.5):
+                      ratio: float = 0.5, distance: str = "l1",
+                      method: str = "auto", l2pre_m: int = 32):
     """Lowe ratio test in both directions.
     Returns (ok_q [NB], i1_q [NB], ok_r [NA], i1_r [NA])."""
     (d1q, d2q, i1q), (d1r, d2r, i1r) = two_nearest_bidir(
-        qry, ref, qry_valid, ref_valid)
+        qry, ref, qry_valid, ref_valid, distance=distance, method=method,
+        l2pre_m=l2pre_m)
     return (_ratio_ok(d1q, d2q, qry_valid, ratio), i1q,
             _ratio_ok(d1r, d2r, ref_valid, ratio), i1r)
 

@@ -1,5 +1,6 @@
 """Warp / sampling ops (counterpart of ``computervisionimagestich2_tpu.ops.warp``).
 
+- ``gather_pixels``       img[yi, xi] on integer indices
 - ``bilinear_sample``     <- Projection::bilinearInterpolation (Projection.cpp:3-18)
 - ``cylindrical_project`` <- Projection::imageProjection (Projection.cpp:20-73),
   with the semantics of the JAX package's gather oracle
@@ -27,6 +28,12 @@ import torch
 
 from . import _native
 from .fp import rdiv
+
+
+def gather_pixels(img: torch.Tensor, xi: torch.Tensor,
+                  yi: torch.Tensor) -> torch.Tensor:
+    """img[yi, xi] for integer index tensors. img: [H, W, C] or [H, W]."""
+    return img[yi, xi]
 
 
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor,

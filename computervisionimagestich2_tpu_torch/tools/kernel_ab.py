@@ -161,9 +161,9 @@ def record_inputs(path: Path) -> dict:
     for name, (mod, attr) in SITES.items():
         fn = orig[name] = getattr(mods[mod], attr)
 
-        def wrapped(*args, _fn=fn, _name=name):
+        def wrapped(*args, _fn=fn, _name=name, **kw):
             calls[_name].append(tuple(to_cpu(a) for a in args))
-            return _fn(*args)
+            return _fn(*args, **kw)
         setattr(mods[mod], attr, wrapped)
     images = chip_smoke.scrambled(chip_smoke.crops(512, 384, 224, 2, 0))
     try:

@@ -1,23 +1,28 @@
-"""Logging and stage timing (the port's copy of the helpers of
-``computervisionimagestich2_tpu.utils.obs``; its ``trace``, a jax.profiler
-hook, has no counterpart here):
+"""Logging, stage timing and traces (the port's copy of
+``computervisionimagestich2_tpu.utils.obs``):
 
 - ``log``        -- structured key=value stage logging, on when
   PANORAMA_TPU_LOG is set (not "0") or after ``set_verbose(True)``;
 - ``warn``       -- always-on warnings for what must never pass silently
   (static-capacity truncation);
-- ``log_sift_overflow`` -- the per-image SIFT truncation report;
+- ``log_sift_overflow`` -- the per-image SIFT truncation report, and
+  ``log_sift_overflow_async``, the same from a side thread;
 - ``StageTimer`` -- wall-clock seconds per stage (``Stitcher.stage_times``,
-  the CLI's ``--timing``).
+  the CLI's ``--timing``);
+- ``trace``      -- a ``torch.profiler`` trace of a block when
+  PANORAMA_TPU_TRACE names a directory (the JAX package's variable; there
+  it starts ``jax.profiler``).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import sys
+import threading
 import time
 
 import numpy as np
+import torch
 
 _VERBOSE = os.environ.get("PANORAMA_TPU_LOG", "") not in ("", "0")
 
@@ -45,8 +50,11 @@ def warn(stage: str, **kv) -> None:
 def log_sift_overflow(stats) -> None:
     """Report static-capacity truncation (never silent).
 
-    stats: [N, 4] array or list of [4] int32 rows: dropped [candidates,
-    refined keypoints, descriptors, final-capacity keypoints] per image."""
+    stats: [N, 4] array, tensor (on any device) or list of [4] int32 rows:
+    dropped [candidates, refined keypoints, descriptors, final-capacity
+    keypoints] per image."""
+    if isinstance(stats, torch.Tensor):
+        stats = stats.cpu()
     arr = np.asarray(stats)
     if arr.ndim == 1:
         arr = arr[None]
@@ -57,6 +65,18 @@ def log_sift_overflow(stats) -> None:
                  dropped_keypoints=int(row[1]),
                  dropped_descriptors=int(row[2]),
                  dropped_final=int(row[3]))
+
+
+def log_sift_overflow_async(stats) -> threading.Thread:
+    """``log_sift_overflow`` on a daemon thread: the readback of ``stats``
+    waits for the device work that feeds it, which would stall a caller
+    that is still queueing work. Best effort (a daemon thread may not
+    print if the process exits first). Returns the thread, so a caller can
+    join it."""
+    t = threading.Thread(target=log_sift_overflow, args=(stats,),
+                         daemon=True)
+    t.start()
+    return t
 
 
 class StageTimer:
@@ -71,3 +91,25 @@ class StageTimer:
         finally:
             self.times[name] = time.perf_counter() - t0
             log(name, seconds=round(self.times[name], 3))
+
+
+@contextlib.contextmanager
+def trace(label: str = "panorama"):
+    """A ``torch.profiler`` trace of the block (host activity, and the
+    card's when CUDA is available), written as a Chrome trace under
+    ``$PANORAMA_TPU_TRACE/<label>`` when that variable is set; otherwise
+    nothing. The JAX package's ``trace`` reads the same variable and runs
+    ``jax.profiler``."""
+    trace_dir = os.environ.get("PANORAMA_TPU_TRACE")
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=
+                 tensorboard_trace_handler(os.path.join(trace_dir, label))):
+        yield

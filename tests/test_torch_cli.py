@@ -121,11 +121,10 @@ def test_resume_without_artifacts_is_refused(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--sp", "2"], "A18"),
-    (["--match-method", "l2pre"], "A14"),
-], ids=["sp", "l2pre"])
+], ids=["sp"])
 def test_outside_the_port_is_refused(tmp_path, capsys, argv, item):
-    """Sharding and the configurations check_supported refuses exit with
-    a usage error naming the ROADMAP item that ports them."""
+    """Sharding (the one flag outside the port) exits with a usage error
+    naming the ROADMAP item that would port it."""
     d = _write_crops(tmp_path / "in", 2)
     err = _cli_error(capsys, ["--input", str(d), "--device", "cpu"] + argv)
     assert f"ROADMAP.md {item}" in err, err
@@ -150,6 +149,26 @@ def test_projective_writes_a_panorama(tmp_path):
         [load_image(str(d / f"{i}.bmp")) for i in (1, 2)])
     np.testing.assert_array_equal(pano, ref)
     assert pano.shape[1] > 200, pano.shape
+
+
+@pytest.mark.parametrize("extra", [[], ["--l2pre-m", "16"]],
+                         ids=["config_m", "m16"])
+def test_l2pre_writes_a_panorama(tmp_path, extra):
+    """--match-method l2pre runs: the CLI writes the port's Stitcher
+    output for the same flags, bit for bit, across all three crops."""
+    d = _write_crops(tmp_path / "in", 3)
+    out = tmp_path / "pano.bmp"
+    argv = ["--input", str(d), "--output", str(out), "--ordering", "chain",
+            "--match-method", "l2pre", "--device", "cpu"] + extra
+    cli.main(argv)
+    cfg = cli.build_config(cli.make_parser().parse_args(argv))
+    assert cfg.match.method == "l2pre"
+    assert cfg.match.l2pre_m == (16 if extra else 12)
+    pano = load_image(str(out))
+    ref = TStitcher(cfg, device="cpu").stitch(
+        [load_image(str(d / f"{i}.bmp")) for i in (1, 2, 3)])
+    np.testing.assert_array_equal(pano, ref)
+    assert pano.shape[1] > 300, pano.shape
 
 
 def test_cuda_without_gpu_is_refused(tmp_path, capsys):

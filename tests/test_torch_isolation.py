@@ -27,6 +27,7 @@ import computervisionimagestich2_tpu_torch.cli
 import computervisionimagestich2_tpu_torch.models.stitcher
 import computervisionimagestich2_tpu_torch.models.streaming
 import computervisionimagestich2_tpu_torch.api.compat
+from computervisionimagestich2_tpu_torch.parallel import batched_stitch_chain
 bad = sorted(m for m in sys.modules
              if m == "computervisionimagestich2_tpu"
              or m.startswith("computervisionimagestich2_tpu.")
@@ -37,8 +38,8 @@ print("LOADED", bad)
 
 def test_port_imports_nothing_of_the_jax_package():
     """A fresh interpreter imports the port's package, its CLI, both
-    stitchers and the compat API; no module of the JAX package (nor jax)
-    is loaded."""
+    stitchers, the compat API and the batched panoramas (``parallel``); no
+    module of the JAX package (nor jax) is loaded."""
     proc = subprocess.run([sys.executable, "-c", _IMPORTS], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -102,6 +103,9 @@ def test_jax_config_works_in_the_port():
     check_supported(jcfg)
     chain = dataclasses.replace(jcfg, ordering="chain")
     check_supported(chain)
-    with pytest.raises(NotImplementedError, match="A14"):
+    check_supported(dataclasses.replace(
+        jcfg, match=dataclasses.replace(jcfg.match, method="l2pre")))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_supported(dataclasses.replace(
-            jcfg, match=dataclasses.replace(jcfg.match, method="l2pre")))
+            jcfg, blend=dataclasses.replace(jcfg.blend,
+                                            blur_impl="fir_fused")))

@@ -782,3 +782,96 @@ def test_projective_on_card_goes_through_the_kernels(cuda_device, planned):
     off_path = {"l1_two_nearest", "warp_image"}
     assert all((c == 0) == (k in off_path) for k, c in counts.items()), counts
     _assert_close_canvas(out, Stitcher(cfg, device="cpu").stitch(crops))
+
+
+@pytest.mark.cuda
+def test_batched_stitch_on_card_equals_one_at_a_time(cuda_device):
+    """Two panoramas of three crops through ``batched_stitch_chain`` on the
+    card: each equals ``_stitch_one_fixed`` on that panorama alone, bit for
+    bit; the batch launches B1 once per image, B4 and B6 once per edge and
+    nothing else; the canvases are the CPU batch's within the end-to-end
+    gate (equal shape, MAD <= 3 u8 levels)."""
+    from computervisionimagestich2_tpu_torch.parallel import batched
+
+    img = _scene(w=260)
+    pans = np.stack([np.stack([img[:, o + 50 * i:o + 50 * i + 140]
+                               for i in range(3)]) for o in (0, 10)])
+    cfg = _small(DEFAULT_CONFIG)
+    _native.reset_launch_counts()
+    out, plans = batched.batched_stitch_chain(pans, cfg, device=cuda_device)
+    counts = _native.launch_counts()
+    want = {"detect_compact": 6, "sift_orientation_hist": None,
+            "sift_descriptors": None, "l1_two_nearest_bidir": 4,
+            "warp_image": 4}
+    for k, c in counts.items():
+        assert (c == 0) == (k not in want), counts
+        assert want.get(k) in (None, c), counts
+    seq = batched.chain_edge_seq(3)
+    canvas = tuple(out.shape[1:3])
+    for b in range(2):
+        one, plan = batched._stitch_one_fixed(
+            torch.as_tensor(pans[b], device=cuda_device), cfg, canvas, seq)
+        assert torch.equal(out[b], one)
+        np.testing.assert_array_equal(plans[b], plan)
+    ref, _ = batched.batched_stitch_chain(pans, cfg, device="cpu")
+    for b in range(2):
+        _assert_close_canvas(out[b].cpu().numpy().astype(np.uint8),
+                             ref[b].numpy().astype(np.uint8))
+
+
+@pytest.mark.cuda
+def test_batched_register_on_card_launches_b7_per_pair(cuda_device):
+    """``batched_pairwise_register`` on three pairs: kernel B7 once per
+    pair (``match_features``), B4 never; the warps reproject within 2 px
+    of the CPU run's over the image."""
+    from computervisionimagestich2_tpu_torch.ops.color import to_gray
+    from computervisionimagestich2_tpu_torch.ops.warp import warp_points
+    from computervisionimagestich2_tpu_torch.parallel import batched
+
+    img = to_gray(torch.as_tensor(_scene(w=260)).float())
+    ga = torch.stack([img[:, o:o + 140] for o in (0, 40, 80)])
+    gb = torch.stack([img[:, o + 30:o + 170] for o in (0, 40, 80)])
+    cfg = _small(DEFAULT_CONFIG)
+    _native.reset_launch_counts()
+    coeffs, inliers = batched.batched_pairwise_register(ga, gb, cfg,
+                                                        cuda_device)
+    counts = _native.launch_counts()
+    assert counts["l1_two_nearest"] == 3, counts
+    assert counts["l1_two_nearest_bidir"] == 0, counts
+    ref, ref_n = batched.batched_pairwise_register(ga, gb, cfg, "cpu")
+    px, py = (t.ravel() for t in torch.meshgrid(
+        torch.linspace(4, 136, 8), torch.linspace(4, 116, 8), indexing="xy"))
+    for k in range(3):
+        xk, yk = warp_points(coeffs[k].cpu(), px, py)
+        xr, yr = warp_points(ref[k], px, py)
+        assert float(torch.hypot(xk - xr, yk - yr).max()) < 2.0
+        assert float(torch.hypot(xk - (px + 30), yk - py).max()) < 2.0
+    assert (inliers.cpu() - ref_n).abs().max() <= 0.1 * ref_n.max() + 2
+
+
+@pytest.mark.cuda
+def test_l2pre_candidate_order_on_card(cuda_device):
+    """The l2pre candidates on CUDA tensors follow (distance, index)
+    order, as on the CPU: [5, 6, 1, 2] on the tie row (torch.topk picks
+    another set), index order on a long row of ties; the whole prefilter
+    on the tie row's references gives i1 = 5, the first of the tied
+    candidates."""
+    row = torch.tensor([[3.0, 1.0, 1.0, 2.0, 1.0, 0.5, 0.5]],
+                       device=cuda_device)
+    assert distance._first_m(row, 4).tolist() == [[5, 6, 1, 2]]
+    long = torch.full((2, 4000), 0.25, device=cuda_device)
+    long[1, 3000] = 0.1
+    got = distance._first_m(long, 12).cpu()
+    assert got[0].tolist() == list(range(12))
+    assert got[1].tolist() == [3000] + list(range(11))
+    ref = torch.zeros((7, 128), device=cuda_device)
+    for k, v in enumerate(row[0].tolist()):
+        if v == 0.5:
+            ref[k, :2] = 0.5
+        else:
+            ref[k, :int(v)] = 1.0
+    q = torch.zeros((1, 128), device=cuda_device)
+    ok_q = torch.ones(1, dtype=torch.bool, device=cuda_device)
+    ok_r = torch.ones(7, dtype=torch.bool, device=cuda_device)
+    d1, d2, i1 = distance.two_nearest(q, ref, ok_q, ok_r, "l1", "l2pre", 4)
+    assert [float(d1), float(d2), int(i1)] == [1.0, 1.0, 5]

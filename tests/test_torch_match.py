@@ -240,7 +240,7 @@ def test_match_features_bidir_equal(jax_feats):
         _jfeat(fa), _jfeat(fb), 0.5, "l1", 512, "off", "exact")
     tab, tba = tmatcher.match_features_bidir(
         features_from_numpy(fa, "cpu"), features_from_numpy(fb, "cpu"),
-        0.5, 512)
+        0.5, "l1", 512)
     for t, j in ((tab, jab), (tba, jba)):
         assert int(t.n_raw) == int(np.asarray(j.n_raw)) > 10
         np.testing.assert_array_equal(t.valid.numpy(), np.asarray(j.valid))
@@ -294,7 +294,8 @@ def test_two_nearest_matches_one_direction_pallas(case):
 def test_ratio_match_and_matcher_api_match_jax(jax_feats):
     """B7's callers: ratio_match, match_features, match_count and
     match_config_call against the JAX functions (pallas="off",
-    method="exact"): equal masks, indices, pairs and n_raw."""
+    method="exact"): equal masks, indices, pairs and n_raw; and
+    match_features under distance="l2"."""
     stacked, _ = jax_feats
     fa, fb = _feat(stacked, 0), _feat(stacked, 1)
     ok_t, i1_t = tdist.ratio_match(T(fb[0]), T(fa[0]), T(fb[3]), T(fa[3]))
@@ -320,8 +321,15 @@ def test_ratio_match_and_matcher_api_match_jax(jax_feats):
     jn = jmatcher.match_count(_jfeat(fa), _jfeat(fb), 0.5, "l1", "off",
                               "exact")
     assert int(tmatcher.match_count(ta, tb)) == int(np.asarray(jn))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tmatcher.match_features(ta, tb, distance="l2")
+    # distance="l2" is ported: the same pairs as the JAX package's
+    tp = tmatcher.match_features(ta, tb, 0.5, "l2", 512)
+    jp = jmatcher.match_features(_jfeat(fa), _jfeat(fb), 0.5, "l2", 512,
+                                 "off")
+    assert int(tp.n_raw) == int(np.asarray(jp.n_raw)) > 10
+    v = np.asarray(jp.valid)
+    np.testing.assert_array_equal(tp.valid.numpy(), v)
+    np.testing.assert_array_equal(tp.src_xy.numpy()[v],
+                                  np.asarray(jp.src_xy)[v])
 
 
 def test_match_features_is_first_direction_of_bidir(jax_feats):

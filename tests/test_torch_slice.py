@@ -77,9 +77,9 @@ def test_cuda_request_raises_without_gpu():
 
 
 @pytest.mark.parametrize("change", [
-    dict(match=dataclasses.replace(SLICE_CONFIG.match, distance="l2")),
     dict(sift=dataclasses.replace(SLICE_CONFIG.sift, walk_dtype="bf16")),
-    dict(match=dataclasses.replace(SLICE_CONFIG.match, method="l2pre")),
+    dict(blend=dataclasses.replace(SLICE_CONFIG.blend,
+                                   blur_impl="fir_fused")),
 ])
 def test_outside_the_slice_raises(change):
     cfg = dataclasses.replace(SLICE_CONFIG, **change)
@@ -106,15 +106,20 @@ def test_outside_the_slice_raises(change):
         SLICE_CONFIG.sift, o_min=-1)),
     dataclasses.replace(SLICE_CONFIG, blend=dataclasses.replace(
         SLICE_CONFIG.blend, gain_compensation=True, gain_mode="luma")),
+    dataclasses.replace(SLICE_CONFIG, match=dataclasses.replace(
+        SLICE_CONFIG.match, method="l2pre")),
+    dataclasses.replace(SLICE_CONFIG, match=dataclasses.replace(
+        SLICE_CONFIG.match, distance="l2")),
 ], ids=["graph", "fused_detect", "method_auto", "default_config",
         "incremental", "bucketed_canvas", "color_transfer", "projective",
-        "vanvliet", "o_min_-1", "luma_gain"])
+        "vanvliet", "o_min_-1", "luma_gain", "l2pre", "distance_l2"])
 def test_default_path_switches_are_accepted(cfg):
     """The default configuration's switches are ported: graph ordering,
     the fused detect and method="auto" (exact L1 off a TPU); so are the
     incremental stitch, bucketed canvases (the command line's default),
     the per-edge color transfer, projective warps, the Van Vliet blend, an
-    upsampled first octave and the luma gain."""
+    upsampled first octave, the luma gain, the L2-prefiltered matcher and
+    squared-L2 matching."""
     check_supported(cfg)
     assert TStitcher(cfg, device="cpu").config is cfg
 
