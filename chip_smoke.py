@@ -104,9 +104,30 @@ phase with its result and seconds:
    (B4 and B5 bypassed, as in the JAX package): the chain, the canvas
    against the CPU run, the ratio-test decisions that differ from exact
    L1 on the edges and the graph counts, and the device time of each
-   strategy per edge beside B4's.
+   strategy per edge beside B4's;
+16. the mesh mode (A18) on virtual meshes of the one card (a list of
+   devices that repeats ``cuda:0``; ``parallel/mesh.py``): (a)
+   ``sharded_composite`` of phase 7's last edge over 2, 4 and 8 stripes,
+   B6 once per stripe, the stripes against ``compose.composite`` (the
+   warped ones' differing pixels counted, expected 0), B6's device time
+   per call and per stripe beside a stripe's bound; (b)
+   ``sharded_blend_two_images`` over 4 stripes against
+   ``blend_two_images`` on that edge's canvas and on a synthetic 2304 x
+   13312 pair (a 4 x 3840x2160 panorama's canvas), f32 within 2e-3 and
+   bf16 within 4.0, time and peak memory of both; (c)
+   ``Stitcher(mesh=make_mesh(4, sp=4, ...))`` on phase 7's images with
+   bucketed canvases: with the seam band off and f32, the chain, B6 once
+   per stripe of every edge and the single-device panorama within
+   tests/test_parallel.py's tolerance; cold and warm walls, profile, peak
+   memory, also under the default blend settings, with the distance from
+   the single-device panorama there recorded (the mesh gate ignores the
+   area-gated seam band, as in the JAX package); (d) the mesh Stitcher at
+   4 x 512x384 against its CPU run; (e) phase 14's 512x384 batch through
+   ``shard_batch`` equal to the unsharded batch, bit for bit; (f) the
+   command line with ``--sp`` one more than the cards refused, naming
+   the count.
 
-In phases 4, 5, 8-11 and 12-15 every launch count is set to 0 just before
+In phases 4, 5, 8-11 and 12-16 every launch count is set to 0 just before
 the path runs and read just after; each path must launch each of its
 kernels (B7, the one-direction 2-NN, belongs to the matcher API of phase 6
 and to the batched registration of phase 14, and each path runs one of
@@ -116,7 +137,7 @@ A redesigned kernel is timed beside its earlier design, from an earlier
 commit, by ``computervisionimagestich2_tpu_torch/tools/kernel_ab.py``.
 
 The line before the last is the per-kernel JSON summary (B1-B7, B6 as its
-two branches), the last
+two branches; B6's row adds its mesh-mode launches and times), the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
@@ -294,15 +315,17 @@ def _device_events(prof) -> list:
             if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
 
 
-def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
+def device_ms(fn, name: str, reps: int = 10, keys=None,
+              launches: int | None = None,
+              windows: int = 5) -> float | None:
     """Mean device time per call of ``fn`` spent in the device work of
     wrapper ``name`` (``DEVICE_KERNELS`` and ``BESIDE_KERNELS``, or the
     profiler keys ``keys``), from ``torch.profiler`` over ``reps`` calls
     after one warm-up: the device work alone, without the host's gaps
     between launches. The profiler now and then drops part of a short
     window, so a window counts only if it holds a whole number of matching
-    device events per call, at least one; after five windows without one,
-    None."""
+    device events per call, at least one (exactly ``launches`` a call,
+    where given); after ``windows`` windows without one, None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,7 +333,7 @@ def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
         keys = DEVICE_KERNELS[name] + BESIDE_KERNELS.get(name, ())
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -319,9 +342,34 @@ def device_ms(fn, name: str, reps: int = 10, keys=None) -> float | None:
         hits = [e for e in _device_events(prof)
                 if any(k in e.key for k in keys)]
         count = sum(e.count for e in hits)
-        if count >= reps and count % reps == 0:
+        if (count == launches * reps if launches
+                else count >= reps and count % reps == 0):
             return sum(_dev_us(e) for e in hits) / 1e3 / reps
     return None
+
+
+def queued_ms(fn, reps: int = 20) -> float | None:
+    """Device time per call of ``fn`` from CUDA events, with the stream
+    held behind a sleep kernel until every call is queued: the launches'
+    device time back to back (with the card's own gaps between them, not
+    the host's). None if the sleep ran out before the host had queued
+    them all."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.Event()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25-30 ms at the H100's clocks
+    held.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_in_time = not held.query()
+    end.synchronize()
+    return start.elapsed_time(end) / reps if queued_in_time else None
 
 
 def kernel_ms(fn, name: str) -> dict:
@@ -616,8 +664,27 @@ def kernel_bound(name: str, a: tuple) -> dict:
         # projective 21 with its guard and two divisions), truncation (2)
         # and the bounds test (4); the 48 bytes of parameters by value
         ops = (22 if model == "bilinear" else 29) * ho * wo
-        return bound(_nbytes(src) + 48 + ho * wo * c * 4, ops)
+        return bound(b6_read_pixels(a) * c * 4 + 48 + ho * wo * c * 4, ops)
     raise KeyError(name)
+
+
+def b6_read_pixels(a: tuple) -> int:
+    """The source pixels that one B6 call ``a`` (src, coeffs, ox, oy,
+    canvas, model) copies onto its canvas: what it must read, each pixel
+    once. A canvas pixel copies one source pixel or none, so B6's plain
+    version on an image of pixel ids (1-based, exact in float32) names
+    them; a canvas stripe reads only the rows that map into it."""
+    import torch
+
+    src = a[0]
+    hs, ws = int(src.shape[0]), int(src.shape[1])
+    assert hs * ws < 2 ** 24, (hs, ws)
+    ids = torch.arange(1, hs * ws + 1, dtype=torch.float32,
+                       device=src.device).view(hs, ws, 1)
+    got = b6_plain(ids, *a[1:]).flatten().long()
+    seen = torch.zeros(hs * ws + 1, dtype=torch.bool, device=src.device)
+    seen[got] = True
+    return int(seen[1:].sum())
 
 
 def panorama_bound(name: str, calls: list) -> dict:
@@ -1220,7 +1287,7 @@ def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
 
 
 def stitch_phase(images, config, cpu: str = "full", record=(),
-                 off_path=(), chain: bool = True) -> tuple:
+                 off_path=(), chain: bool = True, mesh_sp: int = 0) -> tuple:
     """One configuration's stitch of scrambled crops on the card: graph
     discovery finds the scene's chain (with ``chain``; else the edges it
     finds are recorded, beside the CPU run's); a cold run (recording the
@@ -1230,13 +1297,21 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
     branch of ``config.warp_model`` once per stitched image); no
     ``match_overflow`` is logged; the canvas against the port's CPU run
     (``cpu="full"``: from the images; ``"resumed"``: on the features the
-    card's run dumped, SIFT skipped). Returns (report, recorder, stitcher,
-    the last blend's arguments)."""
+    card's run dumped, SIFT skipped). With ``mesh_sp``, both runs are mesh
+    Stitchers of that many stripes on a virtual mesh (the card's, the
+    CPU's), and B6 launches once per stripe of each edge. Returns (report,
+    recorder, stitcher, the last blend's arguments: None where every edge
+    took the sharded path, which calls no ``blend_edge``)."""
     import shutil
     import tempfile
 
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
+    from computervisionimagestich2_tpu_torch.parallel import make_mesh
     from computervisionimagestich2_tpu_torch.utils import obs
+
+    def mesh(device):
+        return (make_mesh(mesh_sp, sp=mesh_sp, devices=[device] * mesh_sp)
+                if mesh_sp else None)
 
     warned, blends, sift_dropped = [], [], []
     warn, blend, sift = obs.warn, stm.blend_edge, stm.sift_extract_stats
@@ -1257,7 +1332,8 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
     rep = {}
     with tempfile.TemporaryDirectory() as d:
         art = f"{d}/card" if cpu == "resumed" else None
-        st = stm.Stitcher(config, device="cuda", artifact_dir=art)
+        st = stm.Stitcher(config, device="cuda", artifact_dir=art,
+                          mesh=mesh("cuda:0"))
         seen = record_ordering(st)
         obs.warn, stm.blend_edge, stm.sift_extract_stats = (
             warn_rec, blend_rec, sift_rec)
@@ -1275,16 +1351,17 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
         check_launches(launches, off_path, model=config.warp_model,
                        b4=None if "l1_two_nearest_bidir" in off_path
                        else n_stitched)
-        assert launches[B6_BRANCH[config.warp_model]] == n_stitched, launches
+        assert launches[B6_BRANCH[config.warp_model]] == n_stitched * max(
+            mesh_sp, 1), launches
         assert "match_overflow" not in warned, warned
         t = time.perf_counter()
         if cpu == "resumed":
             shutil.copytree(f"{d}/card", f"{d}/cpu")
             st_cpu = stm.Stitcher(config, device="cpu",
-                                  artifact_dir=f"{d}/cpu")
+                                  artifact_dir=f"{d}/cpu", mesh=mesh("cpu"))
             st_cpu.prepare = None  # a resume must not run SIFT
         else:
-            st_cpu = stm.Stitcher(config, device="cpu")
+            st_cpu = stm.Stitcher(config, device="cpu", mesh=mesh("cpu"))
         seen_cpu = record_ordering(st_cpu)
         out_cpu = st_cpu.stitch(images, resume=cpu == "resumed")
         rep["cpu_s"] = time.perf_counter() - t
@@ -1295,7 +1372,7 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
                warnings=sorted(set(warned)),
                sift_dropped=sift_dropped[:len(images)])
     assert out.mean() > 20, "empty canvas"
-    return rep, rec, st, blends[-1]
+    return rep, rec, st, blends[-1] if blends else None
 
 
 def check_walks(rec: "Recorder") -> dict:
@@ -1739,6 +1816,324 @@ def match_strategy_phase(images) -> dict:
     return rep
 
 
+MESH_SPS = (2, 4, 8)  # the virtual meshes of phase 16a
+MESH_SP = 4  # phase 16b-d: four stripes on the one card
+# 16b's synthetic pair: the canvas of a 4 x 3840x2160 panorama (~30.7
+# Mpx); 2304 rows = 2 * 4 * 2^5 * 9, so six pyramid levels shard over 4
+BIG_PAIR_HW = (2304, 13312)
+
+
+def record_edges(images, config) -> list:
+    """The arguments of every composite + blend of one planned stitch of
+    ``images`` on the card (``stitcher._composite_and_blend``: the
+    projected image, the previous result, the backward model, min_x,
+    min_y, the working canvas, ...)."""
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    calls, fn = [], stm._composite_and_blend
+
+    def rec(*a):
+        calls.append(a)
+        return fn(*a)
+
+    stm._composite_and_blend = rec
+    try:
+        stm.Stitcher(config, device="cuda").stitch(images)
+    finally:
+        stm._composite_and_blend = fn
+    return calls
+
+
+def mesh_composite_phase(edges) -> dict:
+    """Phase 16a: ``sharded_composite`` of the recorded edges of one
+    stitch on virtual meshes of ``MESH_SPS`` stripes on the card, each
+    canvas's rows rounded up to a multiple of 2 * max(MESH_SPS)
+    (``Stitcher._mesh_comp_hw`` at the largest mesh). B6 launches once
+    per stripe and nothing else; the shifted stripes equal the
+    single-device ``compose.composite``'s exactly, and the warped
+    stripes' differing pixels are counted on every edge (the stripe
+    offset is min_y + idx * m in float32, as in the JAX package, so y +
+    that sum may round apart from (y + idx * m) + min_y: expected 0). On
+    the last edge, B6's device time per call and per stripe, beside the
+    bound of a stripe (the whole source read once, the stripe's rows
+    written)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.models import compose
+    from computervisionimagestich2_tpu_torch.ops import _native, warp
+    from computervisionimagestich2_tpu_torch.parallel import (
+        blend as pblend, make_mesh, sharded_composite)
+    from computervisionimagestich2_tpu_torch.parallel.mesh import gather_rows
+
+    step = 2 * max(MESH_SPS)
+    rep = {"edges": []}
+    for e, edge in enumerate(edges):
+        src, res, bwd, min_x, min_y, (h, w) = edge[:6]
+        canvas = (-(-h // step) * step, w)
+        a_e, b_e = compose.composite(src, res, bwd, min_x, min_y, canvas)
+        row = {"edge_canvas": [h, w], "canvas": list(canvas),
+               "min_xy": [min_x, min_y]}
+        for sp in MESH_SPS:
+            mesh = make_mesh(sp, sp=sp, devices=["cuda:0"] * sp)
+            _native.reset_launch_counts()
+            a_s, b_s = sharded_composite(src, res, bwd, min_x, min_y, canvas,
+                                         mesh)
+            torch.cuda.synchronize()
+            launches = _native.launch_counts()
+            assert launches["warp_image"] == sp == sum(launches.values()), \
+                launches
+            assert torch.equal(gather_rows(b_s, "cuda:0"), b_e), (e, sp)
+            diff = (gather_rows(a_s, "cuda:0") != a_e).any(dim=2)
+            row[f"sp{sp}_differing_pixels"] = int(diff.sum())
+            row[f"sp{sp}_differing_rows"] = diff.any(dim=1).nonzero(
+            ).flatten().tolist()[:20]
+        rep["edges"].append(row)
+    one = (src, bwd, min_x, min_y, canvas, "bilinear")
+    rep["last_edge_single_device"] = {
+        **kernel_ms(lambda: warp.warp_image(*one), "warp_image"),
+        **kernel_bound("warp_image", one)}
+    for sp in MESH_SPS:
+        mesh = make_mesh(sp, sp=sp, devices=["cuda:0"] * sp)
+        stripes, fn = [], pblend.warp_image
+
+        def rec(*a):
+            stripes.append(a)
+            return fn(*a)
+
+        pblend.warp_image = rec
+        try:
+            sharded_composite(src, res, bwd, min_x, min_y, canvas, mesh)
+        finally:
+            pblend.warp_image = fn
+        assert len(stripes) == sp, len(stripes)
+
+        def call(stripes=stripes):
+            for a in stripes:
+                warp.warp_image(*a)
+        bounds = [kernel_bound("warp_image", a) for a in stripes]
+        bound_ms = sum(b["bound_ms"] for b in bounds)
+        dev = device_ms(call, "warp_image", reps=20, launches=sp, windows=10)
+        queued = queued_ms(call)
+        ms = dev if dev is not None else queued
+        rep[f"sp{sp}"] = {
+            "launches_per_call": sp, "ms_per_call": ms,
+            "ms_source": "torch.profiler" if dev is not None else
+            "CUDA events behind a queued sleep (profiler: no whole window)"
+            if queued is not None else "not measured",
+            "ms_per_call_queued_events": queued,
+            "ms_per_stripe": None if ms is None else ms / sp,
+            "bound_ms_stripes": [b["bound_ms"] for b in bounds],
+            "bound_bytes_stripes": [b["bound_bytes"] for b in bounds],
+            "bound_ms_per_call": bound_ms,
+            "bound_by": sorted({b["bound_by"] for b in bounds}),
+            "share_of_bound_per_call": None if ms is None else bound_ms / ms,
+            "wall_ms_events_per_call": cuda_ms(
+                lambda mesh=mesh: sharded_composite(
+                    src, res, bwd, min_x, min_y, canvas, mesh))}
+    return rep
+
+
+def mesh_blend_phase(a, b, content_h, label: str) -> dict:
+    """Phase 16b on one canvas pair: ``sharded_blend_two_images`` over a
+    virtual mesh of ``MESH_SP`` stripes against ``blend_two_images``, in
+    f32 (atol 2e-3) and bf16 (max abs < 4.0), the tolerances of
+    tests/test_parallel.py; the time of each (CUDA events around calls in
+    a row), the peak memory of one call and one profiled call (device busy
+    time against the wall: how far the host holds the card back)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.models.blender import (
+        blend_two_images, n_levels)
+    from computervisionimagestich2_tpu_torch.parallel import (
+        make_mesh, sharded_blend_two_images)
+    from computervisionimagestich2_tpu_torch.parallel.blend import (
+        plan_shard_levels)
+    from computervisionimagestich2_tpu_torch.parallel.mesh import gather_rows
+
+    mesh = make_mesh(MESH_SP, sp=MESH_SP, devices=["cuda:0"] * MESH_SP)
+    h, w = int(a.shape[0]), int(a.shape[1])
+    levels = n_levels(h, w)
+    rep = {"canvas": [h, w], "canvas_mpx": h * w / 1e6, "sp": MESH_SP,
+           "levels": levels,
+           "sharded_levels": plan_shard_levels(h, levels, MESH_SP, 2.0)}
+    for dtype in ("f32", "bf16"):
+        fns = {"single": lambda: blend_two_images(
+                   a, b, content_h=content_h, dtype=dtype),
+               "sharded": lambda: gather_rows(sharded_blend_two_images(
+                   a, b, mesh, content_h=content_h, dtype=dtype), "cuda:0")}
+        outs, r = {}, {}
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            r[f"{name}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                     - base) / 2 ** 30
+            r[f"{name}_ms"] = cuda_ms(fn, reps=3)
+            prof = profile_call(lambda fn=fn: (fn(), torch.cuda.synchronize()),
+                                set(DEVICE_KERNELS))
+            r[f"{name}_profile"] = {k: prof[k] for k in (
+                "wall_s", "device_busy_ms", "idle_share", "device_events",
+                "memcpy_htod_events")}
+        err = float((outs["sharded"] - outs["single"]).abs().max())
+        assert err <= (2e-3 if dtype == "f32" else 4.0), (label, dtype, err)
+        r["max_abs_err"] = err
+        rep[dtype] = r
+        del outs
+    print(json.dumps({"mesh_blend": label, **rep}), flush=True)
+    return rep
+
+
+def big_pair(h: int, w: int, seed: int = 0):
+    """A synthetic canvas pair of a stitch edge, made on the card: a fills
+    the left 2/3 and b the right 2/3 of [h, w, 3] with u8-valued noise,
+    with zero borders (tests/test_parallel.py:46-52's layout)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(rows, cols):
+        n = (len(range(h)[rows]), len(range(w)[cols]), 3)
+        return torch.floor(torch.rand(n, generator=g, device="cuda") * 240
+                           + 10)
+    a = torch.zeros((h, w, 3), device="cuda")
+    b = torch.zeros((h, w, 3), device="cuda")
+    a[8:-8, :2 * w // 3] = fill(slice(8, -8), slice(0, 2 * w // 3))
+    b[4:-12, w // 3:] = fill(slice(4, -12), slice(w // 3, None))
+    return a, b
+
+
+def mesh_stitch_phase(images, b6: dict) -> dict:
+    """Phase 16c: ``Stitcher(mesh=make_mesh(4, sp=4, devices=[cuda:0] *
+    4))`` on the scrambled 1440x1080 images, bucketed canvases. With
+    ``blend.seam_auto_area=0`` and ``blend.dtype="f32"``: graph discovery
+    finds the chain, B6 launches once per stripe of every edge (so no edge
+    fell back), every kernel of the path launched, and the panorama
+    equals the single-device Stitcher's of that config within
+    tests/test_parallel.py:310-313 ((|diff| > 1) share < 1e-3, max <= 16).
+    Cold and warm walls (median of 3), one profiled run (device busy and
+    idle share), peak memory; the same under the default blend settings
+    (``dtype="auto"``, seam band above 2 Mpx), where the mesh gate, like
+    the JAX package's, ignores the area-gated seam band: its distance from
+    the single-device panorama of that config is recorded, not checked
+    (ROADMAP §C). B6's mesh numbers go into its kernels row."""
+    import dataclasses
+
+    import torch
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+    from computervisionimagestich2_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(MESH_SP, sp=MESH_SP, devices=["cuda:0"] * MESH_SP)
+    auto = dataclasses.replace(DEFAULT_CONFIG, exact_canvas=False)
+    f32 = dataclasses.replace(auto, blend=dataclasses.replace(
+        auto.blend, seam_auto_area=0, dtype="f32"))
+    rep = {"sp": MESH_SP}
+    for label, cfg in (("f32_no_seam_auto", f32), ("default_blend", auto)):
+        st = stm.Stitcher(cfg, device="cuda", mesh=mesh)
+        seen = record_ordering(st)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, cold_s = run(st, images)
+        peak = torch.cuda.max_memory_allocated()
+        edges = check_chain(seen)
+        out_w, t1, launches = counted_run(st, images)
+        warm = [t1] + [run(st, images)[1] for _ in range(2)]
+        check_launches(launches, b4=len(edges))
+        assert launches["warp_image"] == len(edges) * MESH_SP, launches
+        prof = profile_run(st, images)
+        st1 = stm.Stitcher(cfg, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        single = st1.stitch(images)
+        peak_single = torch.cuda.max_memory_allocated()
+        single_warm = [run(st1, images)[1] for _ in range(3)]
+        assert single.shape == out.shape, (single.shape, out.shape)
+        diff = np.abs(out.astype(np.int32) - single.astype(np.int32))
+        r = {"edges": edges, "canvas": list(out.shape), "cold_s": cold_s,
+             "warm_median_s": statistics.median(warm), "warm_s": warm,
+             "warm_equals_cold": bool(np.array_equal(out, out_w)),
+             "stage_s_warm": dict(st.stage_times), "launches": launches,
+             "peak_mem_gib": peak / 2 ** 30,
+             "single_device_peak_mem_gib": peak_single / 2 ** 30,
+             "single_device_warm_median_s": statistics.median(single_warm),
+             "vs_single_device": {"mean": float(diff.mean()),
+                                  "share_gt_1": float((diff > 1).mean()),
+                                  "max": int(diff.max())},
+             "profile": prof}
+        if cfg is f32:
+            assert r["vs_single_device"]["share_gt_1"] < 1e-3, r
+            assert r["vs_single_device"]["max"] <= 16, r
+            b6["mesh"] = {"sp": MESH_SP, "edges": len(edges),
+                          "launches_per_panorama": launches["warp_image"],
+                          "device_ms_per_panorama":
+                              prof["kernels"]["warp_image"]["ms"]}
+        rep[label] = r
+    return rep
+
+
+def mesh_batch_phase(h: int, w: int, step: int, scale: int) -> dict:
+    """Phase 16e: phase 14's batch at one frame size through
+    ``shard_batch`` over ``make_mesh(2, sp=1, devices=[cuda:0] * 2)``:
+    ``batched_stitch_chain`` on the sharded batch equals the unsharded
+    call bit for bit (canvases and plans), with B1 once per image and B4
+    and B6 once per edge."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.ops import _native
+    from computervisionimagestich2_tpu_torch.parallel import (
+        batched, make_mesh, shard_batch)
+
+    pans = np.stack([np.stack(crops(h, w, step, scale, seed=sd))
+                     for sd in BATCH_SEEDS])
+    n_pan, k = pans.shape[:2]
+    (sharded,) = shard_batch(make_mesh(2, sp=1, devices=["cuda:0"] * 2),
+                             pans)
+    _native.reset_launch_counts()
+    t = time.perf_counter()
+    out_sh, plans_sh = batched.batched_stitch_chain(sharded, DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _native.launch_counts()
+    check_launches(launches, {"pair_match_counts"}, b4=n_pan * (k - 1))
+    assert launches["warp_image"] == n_pan * (k - 1), launches
+    assert launches["detect_compact"] == n_pan * k, launches
+    out, plans = batched.batched_stitch_chain(pans, DEFAULT_CONFIG,
+                                              device="cuda")
+    assert torch.equal(out_sh, out), "sharded batch != unsharded"
+    assert np.array_equal(plans_sh, plans), "sharded plans != unsharded"
+    return {"chunks": [list(c.shape) for c in sharded.chunks],
+            "sharded_wall_s": wall, "launches": launches,
+            "equals_unsharded": True}
+
+
+def cli_sp_phase(images) -> dict:
+    """Phase 16f: the command line of phase 8 with ``--sp`` one more than
+    the visible cards is a usage error (exit 2) that names the count, and
+    writes nothing."""
+    import tempfile
+
+    import torch
+
+    from computervisionimagestich2_tpu_torch.utils import save_image
+
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as d:
+        for k, img in enumerate(images[:2]):
+            save_image(f"{d}/{k + 1}.bmp", img)
+        proc = subprocess.run(
+            [sys.executable, "-m", "computervisionimagestich2_tpu_torch.cli",
+             "--input", d, "--output", f"{d}/out.bmp", "--sp", str(n + 1)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wrote = Path(f"{d}/out.bmp").exists()
+    err = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+    assert proc.returncode == 2 and f"have {n}" in err and not wrote, (
+        proc.returncode, proc.stderr[-2000:])
+    return {"argv_sp": n + 1, "returncode": proc.returncode, "error": err}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -2023,6 +2418,37 @@ def main() -> int:
     # -- 15. match.method="l2pre" and match.distance="l2" at 4 x 512x384
     t = time.perf_counter()
     emit("match_strategies_512x384", t, **match_strategy_phase(images_512))
+
+    # -- 16. mesh mode on virtual meshes of the one card (A18)
+    t = time.perf_counter()
+    edges_big = record_edges(images_big, DEFAULT_CONFIG)
+    rep = mesh_composite_phase(edges_big)
+    b6["mesh_composite_last_1440x1080_edge"] = rep["sp4"]
+    emit("mesh_composite_1440x1080", t, **rep)
+    t = time.perf_counter()
+    from computervisionimagestich2_tpu_torch.models import compose
+
+    edge = edges_big[-1]
+    rows = -(-edge[5][0] // (2 * MESH_SP)) * 2 * MESH_SP
+    a_e, b_e = compose.composite(*edge[:5], (rows, edge[5][1]))
+    rep = {"last_1440x1080_edge": mesh_blend_phase(a_e, b_e, edge[5][0],
+                                                   "last_1440x1080_edge")}
+    del edge, edges_big, a_e, b_e
+    a_e, b_e = big_pair(*BIG_PAIR_HW)
+    rep["synthetic_4k_panorama"] = mesh_blend_phase(a_e, b_e, None,
+                                                    "synthetic_4k_panorama")
+    del a_e, b_e
+    emit("mesh_blend", t, **rep)
+    t = time.perf_counter()
+    emit("mesh_stitcher_1440x1080", t, **mesh_stitch_phase(images_big, b6))
+    t = time.perf_counter()
+    rep, _, _, _ = stitch_phase(images_512, dataclasses.replace(
+        DEFAULT_CONFIG, exact_canvas=False), cpu="resumed", mesh_sp=MESH_SP)
+    emit("mesh_stitcher_512x384", t, **rep)
+    t = time.perf_counter()
+    emit("mesh_shard_batch_512x384", t, **mesh_batch_phase(512, 384, 224, 2))
+    t = time.perf_counter()
+    emit("cli_sp_refused", t, **cli_sp_phase(images_512))
 
     assert len(kernels) == len(KERNELS), [k["name"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,9 @@ their mapping onto a ``StitchConfig`` (``make_parser``, ``build_config``)
 are a copy of the JAX package's, plus ``--device``; the port imports
 nothing of that package, and ``tests/test_torch_cli.py`` holds the two
 mappings equal. A configuration outside the port is refused with
-``check_supported``'s message; ``--sp`` (multi-device sharding) is not
-ported.
+``check_supported``'s message. ``--sp N`` composites and blends each
+edge row-sharded over N devices of ``--device`` (``make_mesh(N, sp=N)``;
+``--device cpu`` counts one device), as the JAX package's flag does.
 
     python -m computervisionimagestich2_tpu_torch.cli --input DIR \\
         --output pano.bmp --timing
@@ -128,8 +129,11 @@ def make_parser() -> argparse.ArgumentParser:
                         "equal outside a thin seam band)")
     p.set_defaults(exact_canvas=False)
     p.add_argument("--sp", type=int, default=0, metavar="N",
-                   help="shard canvases over N devices (not ported; the "
-                        "JAX package's flag, refused here)")
+                   help="shard canvas composites/blends row-wise over N "
+                        "devices of --device (a mesh driven by one "
+                        "process, halo rows exchanged between stripes); 0 "
+                        "= single device. Requires N devices and "
+                        "--bucketed-canvas")
     p.add_argument("--artifacts", default=None,
                    help="directory to dump per-stage npz artifacts")
     p.add_argument("--resume", action="store_true",
@@ -150,9 +154,20 @@ def main(argv=None):
     # pure argument validation happens before any image loads
     if args.resume and not args.artifacts:
         p.error("--resume requires --artifacts")
+    mesh = None
     if args.sp:
-        p.error(f"--sp {args.sp}: sharding canvases over devices is not "
-                "ported; see ROADMAP.md A18")
+        import torch
+
+        from .parallel.mesh import make_mesh
+
+        if args.exact_canvas:
+            p.error("--sp requires --bucketed-canvas (sharded stripes need "
+                    "bucketed canvas rows)")
+        have = torch.cuda.device_count() if args.device == "cuda" else 1
+        if have < args.sp:
+            p.error(f"--sp {args.sp} needs {args.sp} devices, have {have}")
+        mesh = make_mesh(args.sp, sp=args.sp,
+                         devices=None if args.device == "cuda" else ["cpu"])
     cfg = build_config(args)
 
     from .models.stitcher import Stitcher
@@ -179,7 +194,8 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     try:
-        stitcher = Stitcher(cfg, args.device, artifact_dir=args.artifacts)
+        stitcher = Stitcher(cfg, args.device, artifact_dir=args.artifacts,
+                            mesh=mesh)
     except RuntimeError as e:  # device="cuda" without a GPU
         p.error(str(e))
     out = stitcher.stitch(images, resume=args.resume)

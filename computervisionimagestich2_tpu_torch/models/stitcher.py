@@ -1,6 +1,5 @@
 """Panorama stitching pipeline (counterpart of
-``computervisionimagestich2_tpu.models.stitcher``), without the JAX
-package's mesh mode.
+``computervisionimagestich2_tpu.models.stitcher``).
 
 Equivalent of class ImageProcess (ImageProcess.cpp) as a host orchestrator
 of device stages:
@@ -23,6 +22,10 @@ of device stages:
               model as host floats, by value.
               ``exact_canvas=False`` composites and blends on a canvas
               padded up a geometric size grid and crops back.
+              With a ``mesh`` (``parallel/mesh.py``) the planned loop
+              composites and blends each qualifying edge row-sharded over
+              the mesh (``parallel/blend.py``: B6 once per stripe), as
+              the JAX package's mesh mode does.
   tail:       histogram equalization + YCbCr luma mix
 
 ``artifact_dir`` dumps the features, the canvas and a manifest;
@@ -46,9 +49,11 @@ from ..core.types import Features
 from ..device import resolve_device
 from ..ops.color import to_gray
 from ..ops.warp import cylindrical_project, trunc_u8
+from ..parallel.blend import plan_shard_levels, sharded_composite_and_blend
+from ..parallel.mesh import Mesh, gather_rows
 from ..utils import artifacts, load_image, obs, save_image
 from . import compose
-from .blender import apply_composite_gain, blend_edge
+from .blender import apply_composite_gain, blend_edge, n_levels
 from .equalization import equalize_and_mix
 from .matcher import match_features_bidir
 from .registration import (all_pairs_match_counts, plan_edges, register_edge,
@@ -140,15 +145,37 @@ class Stitcher:
     Configurations outside the ported ones raise NotImplementedError.
     ``artifact_dir``: where ``stitch`` dumps features.npz, canvas.npz and
     manifest.json, and where ``stitch(..., resume=True)`` looks for the
-    features."""
+    features.
+
+    ``mesh``: optional ``parallel.mesh.Mesh``. The planned loop then
+    composites and blends each edge row-sharded over ``mesh[mesh_axis]``
+    (``parallel.blend.sharded_composite_and_blend``) whenever the edge
+    qualifies (``_mesh_edge_ok``: FIR blur, no gain compensation or
+    explicit seam band, canvas rows shardable); other edges take the
+    single-device program. As in the JAX package, the gate does not look
+    at the area-gated seam band (``seam_auto_area``), so above that area a
+    sharded edge blends the whole canvas with no implied gain, and the
+    sharded blend resolves ``dtype="auto"`` against the default 1.5 Mpx.
+    The incremental loop ignores the mesh. Every device of the mesh is of
+    ``device``'s type (ValueError otherwise): a mesh spreads the work over
+    cards of the Stitcher's own kind, never onto the host."""
 
     def __init__(self, config: StitchConfig = DEFAULT_CONFIG,
                  device: str | torch.device = "cuda",
-                 artifact_dir: str | None = None):
+                 artifact_dir: str | None = None,
+                 mesh: Mesh | None = None, mesh_axis: str = "sp"):
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
+        if mesh is not None:
+            kinds = {d.type for d in mesh.devices.flat}
+            if kinds != {self.device.type}:
+                raise ValueError(f"mesh devices {sorted(kinds)} must be of "
+                                 f"the Stitcher's device type "
+                                 f"{self.device.type!r}")
         self.artifact_dir = artifact_dir
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self._timer = obs.StageTimer()
         self._feats_stacked: Features | None = None
 
@@ -159,6 +186,29 @@ class Stitcher:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ----------------------------------------------------------- mesh mode
+    def _mesh_n(self) -> int:
+        return int(self.mesh.shape[self.mesh_axis])
+
+    def _mesh_edge_ok(self, comp_hw: tuple[int, int]) -> bool:
+        """Host-side gate: can this edge run row-sharded? (FIR pyramid
+        only, no gain or explicit seam band on the sharded path, and the
+        rounded canvas must admit >= 1 truly sharded pyramid level.)"""
+        cfg = self.config
+        if (self.mesh is None or cfg.blend.gain_compensation
+                or cfg.blend.seam_band > 0 or cfg.blend.blur_impl != "fir"):
+            return False
+        h, w = comp_hw
+        levels = n_levels(h, w, cfg.blend.level_mode)
+        return plan_shard_levels(h, levels, self._mesh_n(),
+                                 cfg.blend.blur_sigma) >= 1
+
+    def _mesh_comp_hw(self, comp_hw: tuple[int, int]) -> tuple[int, int]:
+        """Round the working canvas's rows up so stripes shard evenly with
+        at least one halved level (H % 2n == 0)."""
+        n2 = 2 * self._mesh_n()
+        return (-(-comp_hw[0] // n2) * n2, comp_hw[1])
 
     # ------------------------------------------------------------- features
     def _project(self, img: torch.Tensor) -> torch.Tensor:
@@ -370,9 +420,23 @@ class Stitcher:
             bwd = plan[k, 9:9 + n_coef]
             min_x, min_y = float(plan[k, 18]), float(plan[k, 19])
             new_w, new_h = int(plan[k, 20]), int(plan[k, 21])
-            result = _composite_and_blend(
-                projected[dst_i], result, bwd, min_x, min_y,
-                self._comp_hw(new_h, new_w), (new_h, new_w), cfg)
+            comp_hw = self._comp_hw(new_h, new_w)
+            if self.mesh is not None and self._mesh_edge_ok(
+                    self._mesh_comp_hw(comp_hw)):
+                comp_hw = self._mesh_comp_hw(comp_hw)
+                blended = sharded_composite_and_blend(
+                    projected[dst_i], result, bwd, min_x, min_y, comp_hw,
+                    self.mesh, self.mesh_axis, cfg.warp_model,
+                    cfg.blend.level_mode, cfg.blend.blur_sigma,
+                    content_h=new_h, dtype=cfg.blend.dtype)
+                # the stripes gathered on self.device: the next edge reads
+                # the result whole, and the enhance tail runs there
+                result = trunc_u8(
+                    gather_rows(blended, self.device)[:new_h, :new_w])
+            else:
+                result = _composite_and_blend(
+                    projected[dst_i], result, bwd, min_x, min_y, comp_hw,
+                    (new_h, new_w), cfg)
             obs.log("edge", src=src_i, dst=dst_i, canvas=(new_h, new_w))
             if plan[k, 22] > 0:
                 obs.warn("match_overflow", src=src_i, dst=dst_i,

@@ -164,11 +164,16 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel launcher ``name`` on the current CUDA stream (appended as
-    the last argument); raise if the launch reported an error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel launcher ``name`` on ``device``, the card that holds the
+    tensors it is given, and on that card's current stream (appended as
+    the last argument); raise if the launch reported an error. The
+    launchers address the current CUDA device, so the call runs under
+    ``torch.cuda.device(device)``: a tensor on a second card would
+    otherwise be handed to the first card's stream."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 

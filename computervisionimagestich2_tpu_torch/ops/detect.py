@@ -109,7 +109,7 @@ def detect_compact_octaves(dogs, peak_thresh: float, capacities):
     gate = 0.8 * peak_thresh
     _native.LAUNCHES["detect_compact"] += 1
     _native.launch(
-        "cvs_detect_compact", n,
+        "cvs_detect_compact", dev, n,
         (ctypes.c_void_p * n)(*(d.data_ptr() for d in dogs)),
         (ctypes.c_int * (4 * n))(*(v for row in dims for v in row)), gate,
         coords.data_ptr(), valid.data_ptr(), n_total.data_ptr(),

@@ -170,7 +170,7 @@ def two_nearest(qry: torch.Tensor, ref: torch.Tensor,
     part_d = torch.empty((2 * n_part,), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_part,), dtype=torch.int32, device=dev)
     _native.LAUNCHES["l1_two_nearest"] += 1
-    _native.launch("cvs_l1_two_nearest", qry.data_ptr(), ref.data_ptr(),
+    _native.launch("cvs_l1_two_nearest", dev, qry.data_ptr(), ref.data_ptr(),
                    qry_valid.data_ptr(), ref_valid.data_ptr(), nb, na,
                    part_d.data_ptr(), part_i.data_ptr(), d1.data_ptr(),
                    d2.data_ptr(), i1.data_ptr())
@@ -252,7 +252,7 @@ def two_nearest_bidir(qry: torch.Tensor, ref: torch.Tensor,
            for dt in (torch.float32, torch.float32, torch.int32)]
     if nb or na:
         _native.LAUNCHES["l1_two_nearest_bidir"] += 1
-        _native.launch("cvs_l1_two_nearest_bidir", qry.data_ptr(),
+        _native.launch("cvs_l1_two_nearest_bidir", dev, qry.data_ptr(),
                        ref.data_ptr(), qry_valid.data_ptr(),
                        ref_valid.data_ptr(), nb, na, part_d.data_ptr(),
                        part_i.data_ptr(), *(t.data_ptr() for t in out))
@@ -402,7 +402,7 @@ def pair_match_counts(desc3: torch.Tensor, valid2: torch.Tensor,
     part = torch.empty((chunk * 4 * -(-cap // TILE) * cap,),
                        dtype=torch.float32, device=dev)
     _native.LAUNCHES["pair_match_counts"] += 1
-    _native.launch("cvs_pair_match_counts", desc3.data_ptr(),
+    _native.launch("cvs_pair_match_counts", dev, desc3.data_ptr(),
                    valid2.data_ptr(), n, cap, pairs.data_ptr(), n_pairs,
                    float(ratio), chunk, plan.data_ptr(),
                    plan[n:].data_ptr(), part.data_ptr(), out.data_ptr())

@@ -42,7 +42,7 @@ def orientation_hist(mod: torch.Tensor, ang: torch.Tensor, x: torch.Tensor,
     n = x.shape[0]
     hist = torch.empty((n, n_bins), dtype=torch.float32, device=mod.device)
     _native.LAUNCHES["sift_orientation_hist"] += 1
-    _native.launch("cvs_orientation_hist", mod.data_ptr(), ang.data_ptr(),
+    _native.launch("cvs_orientation_hist", mod.device, mod.data_ptr(), ang.data_ptr(),
                    h, w, x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
                    n_valid.data_ptr(), n, radius, hist.data_ptr())
     xi = torch.floor(x + 0.5)
@@ -68,7 +68,7 @@ def descriptors(mod: torch.Tensor, ang: torch.Tensor, x: torch.Tensor,
     n = x.shape[0]
     desc = torch.empty((n, 128), dtype=torch.float32, device=mod.device)
     _native.LAUNCHES["sift_descriptors"] += 1
-    _native.launch("cvs_descriptors", mod.data_ptr(), ang.data_ptr(), h, w,
+    _native.launch("cvs_descriptors", mod.device, mod.data_ptr(), ang.data_ptr(), h, w,
                    x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
                    angle.data_ptr(), n_valid.data_ptr(), n, radius,
                    float(magnif), float(window_size), desc.data_ptr())

@@ -212,7 +212,7 @@ def warp_image(src: torch.Tensor, coeffs: torch.Tensor | Sequence[float],
                       device=src.device)
     _native.LAUNCHES["warp_image" if model == "bilinear"
                      else "warp_image_projective"] += 1
-    _native.launch("cvs_warp_image", src.data_ptr(), src.shape[0],
+    _native.launch("cvs_warp_image", src.device, src.data_ptr(), src.shape[0],
                    src.shape[1], src.shape[2], par, h, w, out.data_ptr())
     return out
 

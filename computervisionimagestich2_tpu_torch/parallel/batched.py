@@ -8,8 +8,15 @@ a loop over its members on one device: on the card every member runs the
 kernels of its path (B1-B3 for the features, B4 and B6 for a panorama, B7
 for a registration pair), on the CPU their plain versions, and a batch
 equals its members run one at a time, bit for bit.
+
+``shard_batch`` splits a batch's axis 0 over a mesh's ``data`` devices
+(the JAX package's ``device_put`` with ``P("data")``); each function here
+takes such a batch, runs every member on its chunk's device and returns
+the results on the first one.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -28,6 +35,44 @@ from ..ops import rng
 from ..ops.color import to_gray
 from ..ops.warp import cylindrical_project, trunc_u8
 from ..utils import obs
+from .mesh import Mesh, to_device
+
+
+@dataclass(frozen=True)
+class ShardedBatch:
+    """A batch split along axis 0 over a mesh's ``data`` axis
+    (``shard_batch``): ``chunks[i]`` lies on the axis's device i."""
+
+    chunks: tuple[torch.Tensor, ...]
+
+
+def shard_batch(mesh: Mesh, *arrays) -> tuple[ShardedBatch, ...]:
+    """Place arrays (or tensors) with the batch axis sharded over the
+    ``data`` axis: one equal chunk per device. Raises unless the batch
+    splits evenly."""
+    devices = mesh.axis_devices("data")
+    out = []
+    for a in arrays:
+        t = torch.as_tensor(a)
+        if t.shape[0] % len(devices):
+            raise ValueError(f"a batch of {t.shape[0]} does not split over "
+                             f"{len(devices)} data devices")
+        out.append(ShardedBatch(tuple(
+            to_device(c, d) for c, d in zip(torch.chunk(t, len(devices)),
+                                            devices))))
+    return tuple(out)
+
+
+def _members(batch, device) -> tuple[list[torch.Tensor], torch.device]:
+    """The members of a batch, each on the device it runs on, and the
+    device the results go to: a ``ShardedBatch``'s members on their
+    chunk's device, results on the first; otherwise the whole batch on
+    ``device``."""
+    if isinstance(batch, ShardedBatch):
+        return ([m for c in batch.chunks for m in c],
+                batch.chunks[0].device)
+    dev = resolve_device(device)
+    return list(torch.as_tensor(batch, device=dev)), dev
 
 
 def _register_one(gray_a: torch.Tensor, gray_b: torch.Tensor,
@@ -50,21 +95,24 @@ def batched_pairwise_register(gray_a, gray_b,
                               cfg: StitchConfig = DEFAULT_CONFIG,
                               device: str | torch.device = "cuda"):
     """Registration of a batch of pairs: gray_a, gray_b [B, H, W] float32
-    luma (arrays or tensors). Every pair draws from the same unsalted
-    ``prng_key(cfg.ransac.seed)``, as in the JAX package. Returns (coeffs
-    [B, 8], inliers [B]) on ``device``."""
+    luma (arrays, tensors or ``shard_batch`` batches). Every pair draws
+    from the same unsalted ``prng_key(cfg.ransac.seed)``, as in the JAX
+    package. Returns (coeffs [B, 8], inliers [B]) on ``device`` (on the
+    first data device for a sharded batch)."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    ga = torch.as_tensor(gray_a, device=dev).float()
-    gb = torch.as_tensor(gray_b, device=dev).float()
-    out = [_register_one(a, b, cfg) for a, b in zip(ga, gb)]
-    return (torch.stack([c for c, _ in out]),
-            torch.stack([n for _, n in out]))
+    ga, dev = _members(gray_a, device)
+    gb, _ = _members(gray_b, device)
+    out = [_register_one(a.float(), to_device(b, a.device).float(), cfg)
+           for a, b in zip(ga, gb)]
+    return (torch.stack([to_device(c, dev) for c, _ in out]),
+            torch.stack([to_device(n, dev) for _, n in out]))
 
 
-def _project_and_extract(images: torch.Tensor, cfg: StitchConfig):
-    """Cylindrical projection, luma and SIFT of each image of [B, H, W, 3]:
-    (stacked Features, projections [B, H, W, 3] float32, stats [B, 4])."""
+def _project_and_extract(images, cfg: StitchConfig):
+    """Cylindrical projection, luma and SIFT of each image [H, W, 3] of
+    ``images`` (a tensor [B, H, W, 3], or a list of images on their own
+    devices): (stacked Features, projections [B, H, W, 3] float32, stats
+    [B, 4]) on the first image's device."""
     feats, proj, stats = [], [], []
     for img in images:
         p = cylindrical_project(img.float(), cfg.projection.angle_deg)
@@ -72,22 +120,27 @@ def _project_and_extract(images: torch.Tensor, cfg: StitchConfig):
         feats.append(f)
         proj.append(p)
         stats.append(s)
-    return (Features(*(torch.stack(parts) for parts in zip(*feats))),
-            torch.stack(proj), torch.stack(stats))
+    dev = proj[0].device
+
+    def stack(ts):
+        return torch.stack([to_device(t, dev) for t in ts])
+    return (Features(*(stack(parts) for parts in zip(*feats))),
+            stack(proj), stack(stats))
 
 
 def batched_project_and_extract(images, cfg: StitchConfig = DEFAULT_CONFIG,
                                 device: str | torch.device = "cuda"):
     """Cylindrical projection + luma + SIFT over a batch of images
-    [B, H, W, 3] (u8 or float; an array or a tensor): the batched form of
-    readFile (ImageProcess.cpp:11-24). Returns (Features stacked [B, CAP,
-    ...], projections [B, H, W, 3] float32) on ``device``. Capacity
+    [B, H, W, 3] (u8 or float; an array, a tensor or a ``shard_batch``
+    batch): the batched form of readFile (ImageProcess.cpp:11-24). Returns
+    (Features stacked [B, CAP, ...], projections [B, H, W, 3] float32) on
+    ``device`` (on the first data device for a sharded batch). Capacity
     truncation is reported from a side thread
     (``obs.log_sift_overflow_async``), so the caller can queue more work
     before the readback."""
     check_supported(cfg)
-    feats, proj, stats = _project_and_extract(
-        torch.as_tensor(images, device=resolve_device(device)), cfg)
+    feats, proj, stats = _project_and_extract(_members(images, device)[0],
+                                              cfg)
     obs.log_sift_overflow_async(stats)
     return feats, proj
 
@@ -142,22 +195,23 @@ def batched_stitch_chain(images, cfg: StitchConfig = DEFAULT_CONFIG,
                          canvas_hw: tuple[int, int] | None = None,
                          device: str | torch.device = "cuda"):
     """Stitch a batch of panoramas: images [B, K, H, W, 3] (u8 or float;
-    an array or a tensor), B panoramas of K pre-ordered images each
-    (ex6 chain ordering), all on one fixed canvas ``canvas_hw`` (default
-    ``default_canvas``). Mixed resolutions batch by zero-padding to a
-    common [H, W] first.
+    an array, a tensor or a ``shard_batch`` batch), B panoramas of K
+    pre-ordered images each (ex6 chain ordering), all on one fixed canvas
+    ``canvas_hw`` (default ``default_canvas``). Mixed resolutions batch by
+    zero-padding to a common [H, W] first.
 
-    Each panorama runs ``_stitch_one_fixed`` on ``device``. The content
-    extents come back in the plans; when the largest passes the canvas, a
+    Each panorama runs ``_stitch_one_fixed`` on ``device`` (a sharded
+    batch's on its chunk's device). The content extents come back in the
+    plans; when the largest passes the canvas, a
     ``batched_canvas_overflow`` warning is printed (rerun with a larger
     ``canvas_hw``).
 
-    Returns (canvases [B, Hc, Wc, 3] u8-valued float32 on ``device``,
-    plans [B, E, 23] numpy); plans[:, -1, 20:22] are the final (w, h)
-    content extents."""
+    Returns (canvases [B, Hc, Wc, 3] u8-valued float32 on ``device``, or
+    on the first data device for a sharded batch; plans [B, E, 23]
+    numpy); plans[:, -1, 20:22] are the final (w, h) content extents."""
     check_supported(cfg)
-    batch = torch.as_tensor(images, device=resolve_device(device))
-    k, h, w = int(batch.shape[1]), int(batch.shape[2]), int(batch.shape[3])
+    batch, dev = _members(images, device)
+    k, h, w = (int(d) for d in batch[0].shape[:3])
     if k < 2:
         raise ValueError(f"a panorama needs at least 2 images, got {k}")
     edge_seq = chain_edge_seq(k)
@@ -173,4 +227,4 @@ def batched_stitch_chain(images, cfg: StitchConfig = DEFAULT_CONFIG,
     if final_w > canvas_hw[1] or final_h > canvas_hw[0]:
         obs.warn("batched_canvas_overflow",
                  needed=(int(final_h), int(final_w)), canvas=canvas_hw)
-    return torch.stack([c for c, _ in outs]), plans
+    return torch.stack([to_device(c, dev) for c, _ in outs]), plans

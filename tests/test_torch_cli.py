@@ -1,8 +1,8 @@
 """The port's command line (``panorama-torch``) and its reference-shaped
 API (``api/compat.py``) on the CPU: the flags map onto the same
 ``StitchConfig`` as the JAX package's ``panorama-tpu``, a whole run on
-small BMPs loads no jax, configurations outside the port are refused with
-the ROADMAP item that ports them, and the compat functions agree with the
+small BMPs loads no jax, ``--sp`` is refused where the JAX CLI refuses it
+and otherwise stitches on a mesh, and the compat functions agree with the
 JAX package's.
 """
 import dataclasses
@@ -120,14 +120,30 @@ def test_resume_without_artifacts_is_refused(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--sp", "2"], "A18"),
-], ids=["sp"])
+    (["--sp", "2"], "--sp 2 needs 2 devices, have 1"),
+    (["--sp", "2", "--exact-canvas"], "--sp requires --bucketed-canvas"),
+], ids=["sp", "sp_exact_canvas"])
 def test_outside_the_port_is_refused(tmp_path, capsys, argv, item):
-    """Sharding (the one flag outside the port) exits with a usage error
-    naming the ROADMAP item that would port it."""
+    """--sp follows the JAX CLI's rules: more devices than --device has
+    (the CPU counts as one) and --exact-canvas are usage errors."""
     d = _write_crops(tmp_path / "in", 2)
     err = _cli_error(capsys, ["--input", str(d), "--device", "cpu"] + argv)
-    assert f"ROADMAP.md {item}" in err, err
+    assert item in err, err
+
+
+def test_sp_one_writes_a_panorama(tmp_path):
+    """--sp 1 --device cpu stitches through the mesh path (one stripe):
+    the panorama equals the run without --sp within the mesh Stitcher's
+    tolerance (tests/test_parallel.py:310-313)."""
+    d = _write_crops(tmp_path / "in", 3)
+    base = ["--input", str(d), "--ordering", "chain", "--device", "cpu"]
+    cli.main(base + ["--output", str(tmp_path / "sp.bmp"), "--sp", "1"])
+    cli.main(base + ["--output", str(tmp_path / "one.bmp")])
+    meshed = load_image(str(tmp_path / "sp.bmp")).astype(np.int32)
+    single = load_image(str(tmp_path / "one.bmp")).astype(np.int32)
+    assert meshed.shape == single.shape and meshed.shape[1] > 300
+    diff = np.abs(meshed - single)
+    assert (diff > 1).mean() < 1e-3 and diff.max() <= 16, diff.max()
 
 
 def test_projective_writes_a_panorama(tmp_path):

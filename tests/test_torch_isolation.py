@@ -27,7 +27,9 @@ import computervisionimagestich2_tpu_torch.cli
 import computervisionimagestich2_tpu_torch.models.stitcher
 import computervisionimagestich2_tpu_torch.models.streaming
 import computervisionimagestich2_tpu_torch.api.compat
-from computervisionimagestich2_tpu_torch.parallel import batched_stitch_chain
+from computervisionimagestich2_tpu_torch.parallel import (
+    batched_stitch_chain, make_mesh, shard_batch, sharded_blend_two_images,
+    sharded_composite, sharded_composite_and_blend, sharded_gaussian_blur)
 bad = sorted(m for m in sys.modules
              if m == "computervisionimagestich2_tpu"
              or m.startswith("computervisionimagestich2_tpu.")
@@ -38,8 +40,8 @@ print("LOADED", bad)
 
 def test_port_imports_nothing_of_the_jax_package():
     """A fresh interpreter imports the port's package, its CLI, both
-    stitchers, the compat API and the batched panoramas (``parallel``); no
-    module of the JAX package (nor jax) is loaded."""
+    stitchers, the compat API, the batched panoramas and the mesh mode
+    (``parallel``); no module of the JAX package (nor jax) is loaded."""
     proc = subprocess.run([sys.executable, "-c", _IMPORTS], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -875,3 +875,64 @@ def test_l2pre_candidate_order_on_card(cuda_device):
     ok_r = torch.ones(7, dtype=torch.bool, device=cuda_device)
     d1, d2, i1 = distance.two_nearest(q, ref, ok_q, ok_r, "l1", "l2pre", 4)
     assert [float(d1), float(d2), int(i1)] == [1.0, 1.0, 5]
+
+
+@pytest.mark.cuda
+def test_kernel_b6_launches_on_the_tensors_card(cuda_device):
+    """B6 on ``cuda:1`` while the current device is 0 launches on card 1's
+    stream (``_native.launch`` runs under the tensors' device) and equals
+    its plain version. Needs two cards: with fewer it skips, since a
+    tensor on one card cannot show which card's stream took the launch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(15)
+    src = T(rng.integers(0, 256, (60, 50, 3)).astype(np.float32))
+    ref = twarp.warp_image_plain(src, T(WARP_COEFFS), -3.5, -7.25, (81, 93))
+    with torch.cuda.device(0):
+        _native.reset_launch_counts()
+        out = twarp.warp_image(src.to("cuda:1"), WARP_COEFFS, -3.5, -7.25,
+                               (81, 93))
+        torch.cuda.synchronize(1)
+    assert out.device == torch.device("cuda:1")
+    assert _native.launch_counts()["warp_image"] == 1
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_mesh_on_card_launches_b6_per_stripe(cuda_device):
+    """A virtual mesh of four stripes on the card: ``sharded_composite``
+    launches B6 once per stripe and its stripes equal the single-device
+    composite bit for bit; the mesh Stitcher shards every edge (B6 edges x
+    4) and its panorama is the single-device one's within the mesh
+    tolerance of tests/test_parallel.py:310-313."""
+    from computervisionimagestich2_tpu_torch.models import compose
+    from computervisionimagestich2_tpu_torch.parallel import (
+        make_mesh, sharded_composite)
+    from computervisionimagestich2_tpu_torch.parallel.mesh import gather_rows
+
+    mesh = make_mesh(4, sp=4, devices=[cuda_device] * 4)
+    rng = np.random.default_rng(0)
+    src = T(rng.uniform(10, 250, (96, 128, 3)).astype(np.float32)).to(
+        cuda_device)
+    prev = T(rng.uniform(10, 250, (96, 108, 3)).astype(np.float32)).to(
+        cuda_device)
+    _native.reset_launch_counts()
+    a_s, b_s = sharded_composite(src, prev, WARP_COEFFS, -12.7, -8.3,
+                                 (128, 160), mesh)
+    assert _native.launch_counts()["warp_image"] == 4
+    a_e, b_e = compose.composite(src, prev, WARP_COEFFS, -12.7, -8.3,
+                                 (128, 160))
+    assert torch.equal(gather_rows(a_s, cuda_device), a_e)
+    assert torch.equal(gather_rows(b_s, cuda_device), b_e)
+
+    img = _scene(w=260)
+    crops = [img[:, 50 * i:50 * i + 140] for i in range(3)]
+    cfg = dataclasses.replace(_small(DEFAULT_CONFIG), ordering="chain",
+                              exact_canvas=False)
+    _native.reset_launch_counts()
+    meshed = Stitcher(cfg, device=cuda_device, mesh=mesh).stitch(crops)
+    assert _native.launch_counts()["warp_image"] == 2 * 4
+    single = Stitcher(cfg, device=cuda_device).stitch(crops)
+    assert meshed.shape == single.shape
+    diff = np.abs(meshed.astype(np.int32) - single.astype(np.int32))
+    assert (diff > 1).mean() < 1e-3 and diff.max() <= 16, diff.max()
