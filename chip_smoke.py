@@ -12,7 +12,8 @@ phase with its result and seconds:
 
 1. environment: a CUDA device, its name and power limit (nvidia-smi);
 2. build: the CUDA kernels, compiled from ``csrc/`` with nvcc (one process
-   per source, in parallel);
+   per source, in parallel), and the native BMP codec (``native/``, g++),
+   which ``utils/io.py`` must take on this machine;
 3. a cold default-path stitch of four synthetic 512x384 portrait crops
    handed over in scrambled order; graph discovery must find the scene's
    chain. It records the inputs of every kernel call, then every kernel
@@ -125,9 +126,30 @@ phase with its result and seconds:
    4 x 512x384 against its CPU run; (e) phase 14's 512x384 batch through
    ``shard_batch`` equal to the unsharded batch, bit for bit; (f) the
    command line with ``--sp`` one more than the cards refused, naming
-   the count.
+   the count;
+17. BASELINE config 4 (``config4``: ``DEFAULT_CONFIG`` with gain
+   compensation) on four scrambled 3840x2160 crops of one scene (58%
+   step, phase 7's feature scale): (a) a cold stitch recording every
+   kernel call: the chain, per image the four SIFT drop counters, per edge
+   the matches dropped and ``match_overflow`` (recorded, not failed at
+   these capacities), the canvas, the blend gates each edge engaged, the
+   stage times, the largest bin the enhance tail equalizes; (b) every
+   kernel of the path against its plain version at its 4K calls (B1
+   exactly on the four octaves, B2 and B3 on the first octave's call, B4
+   on an edge and at the extractor's full 16384 slots, B5 on the call and
+   at full capacity in chunks, B6 on the last canvas), with device time,
+   bound and share; warm runs: launches (B1 once per image, B2 and B3 once
+   per level batch of every octave, B4 and B6 once per edge, B5 once),
+   median of three, peak memory, a profile; (c) the last edge's composite
+   + blend again on the CPU on the same arguments; (d) the stitch at the
+   smallest ``sift.max_keypoints_per_octave``, ``sift.max_keypoints`` and
+   ``match.max_matches`` that zero the counters (what no field lowers is
+   recorded), with no ``match_overflow``, its wall, profile, peak memory
+   and B4 and B5 beside their bounds; (e) the command line with
+   ``--gain-compensation`` on the frames as 24.9 MB BMPs (phase 8's
+   checks; it must take the native codec), and both codecs timed on them.
 
-In phases 4, 5, 8-11 and 12-16 every launch count is set to 0 just before
+In phases 4, 5, 8-11 and 12-17 every launch count is set to 0 just before
 the path runs and read just after; each path must launch each of its
 kernels (B7, the one-direction 2-NN, belongs to the matcher API of phase 6
 and to the batched registration of phase 14, and each path runs one of
@@ -137,12 +159,14 @@ A redesigned kernel is timed beside its earlier design, from an earlier
 commit, by ``computervisionimagestich2_tpu_torch/tools/kernel_ab.py``.
 
 The line before the last is the per-kernel JSON summary (B1-B7, B6 as its
-two branches; B6's row adds its mesh-mode launches and times), the last
+two branches; B6's row adds its mesh-mode launches and times, and every
+row its 4K launches, device time and calls, ``at_4k``), the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -445,6 +469,75 @@ def record_ordering(stitcher) -> dict:
     return seen
 
 
+@contextlib.contextmanager
+def telemetry():
+    """While open, record what a stitch reports: the SIFT drop counters
+    of each image (candidates, refined keypoints, descriptors, final
+    capacity) and its live keypoints before the final capacity, the
+    matches each edge dropped (the plan's column 22), the warnings, each
+    blend's canvas with the precision and seam-band gates it engaged and
+    the last blend's arguments, and the histogram the enhance tail
+    equalizes (its largest bin: the JAX package counts in float32, exact
+    below 2^24 a bin)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+    from computervisionimagestich2_tpu_torch.models.blender import (
+        resolve_dtype, seam_auto_engaged)
+    from computervisionimagestich2_tpu_torch.ops.color import rgb_to_ycbcr
+    from computervisionimagestich2_tpu_torch.utils import obs
+
+    tel = {"sift_dropped": [], "sift_live": [], "match_dropped": None,
+           "warnings": [], "blends": [], "last_blend": None,
+           "equalize": None}
+    orig = (stm.sift_extract_stats, stm.plan_edges, obs.warn,
+            stm.blend_edge, stm.equalize_and_mix)
+    sift, plan, warn, blend, equalize = orig
+
+    def sift_rec(*a):
+        f, s = sift(*a)
+        tel["sift_dropped"].append(s.tolist())
+        tel["sift_live"].append(int(f.valid.sum()) + int(s[3]))
+        return f, s
+
+    def plan_rec(*a):
+        p = plan(*a)
+        tel["match_dropped"] = p[:, 22].astype(int).tolist()
+        return p
+
+    def warn_rec(stage, **kv):
+        tel["warnings"].append({"stage": stage, **kv})
+        warn(stage, **kv)
+
+    def blend_rec(a, b, bcfg, *rest):
+        h, w = int(a.shape[0]), int(a.shape[1])
+        tel["blends"].append({
+            "canvas": [h, w], "mpx": h * w / 1e6,
+            "dtype": resolve_dtype(bcfg.dtype, h, w, bcfg.bf16_auto_area),
+            "seam_band_with_rgb_gain": seam_auto_engaged(bcfg, h, w)})
+        tel["last_blend"] = (a, b, bcfg, *rest)
+        return blend(a, b, bcfg, *rest)
+
+    def equalize_rec(result, *a):
+        y = rgb_to_ycbcr(result, compat_luma=a[0] if a else True,
+                         to_u8=True)[..., 0]
+        hist = torch.bincount(y.reshape(-1).long(), minlength=256)
+        tel["equalize"] = {"pixels": int(y.numel()),
+                           "largest_bin": int(hist.max()),
+                           "largest_bin_level": int(hist.argmax()),
+                           "largest_bin_below_2_24": int(hist.max()) < 2 ** 24}
+        return equalize(result, *a)
+
+    (stm.sift_extract_stats, stm.plan_edges, obs.warn, stm.blend_edge,
+     stm.equalize_and_mix) = (sift_rec, plan_rec, warn_rec, blend_rec,
+                              equalize_rec)
+    try:
+        yield tel
+    finally:
+        (stm.sift_extract_stats, stm.plan_edges, obs.warn, stm.blend_edge,
+         stm.equalize_and_mix) = orig
+
+
 def graph_edges(seen: dict) -> list:
     """The undirected edges of the adjacency graph discovery found."""
     adj = seen["adj"]
@@ -517,18 +610,24 @@ def check_b5(a: tuple, plain: bool = True):
 
 
 def b5_at(images, plain: bool = True, trimmed: bool = True) -> dict:
-    """Kernel B5 on the features of ``images`` (``pair_inputs``):
-    ``check_b5``, its device time beside its bound, and the device memory
-    the call takes at its peak (scratch and result), which must stay
-    within the budget."""
+    """Kernel B5 on the features of ``images`` (``pair_inputs``), as
+    ``b5_on``."""
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+
+    return b5_on((*pair_inputs(images, trimmed),
+                  DEFAULT_CONFIG.match.ratio_threshold), plain)
+
+
+def b5_on(a: tuple, plain: bool = True, within_budget: bool = True) -> dict:
+    """Kernel B5 on inputs ``a`` (desc, valid, pairs, ratio): ``check_b5``,
+    its device time beside its bound, and the device memory the call takes
+    at its peak (scratch and result), which must stay within the budget
+    (``within_budget``; else it is recorded: a pair whose scratch alone
+    exceeds the budget goes in a chunk of its own)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.ops import distance
 
-    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
-
-    a = (*pair_inputs(images, trimmed),
-         DEFAULT_CONFIG.match.ratio_threshold)
     pk, diff, near = check_b5(a, plain)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -536,10 +635,11 @@ def b5_at(images, plain: bool = True, trimmed: bool = True) -> dict:
     distance.pair_match_counts(*a)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held
+    chunk = distance.pair_chunk(a[0].shape[1], a[2].shape[0],
+                                distance.PAIR_SCRATCH_BYTES)
     row = {"images": int(a[0].shape[0]), "slots": int(a[0].shape[1]),
            "live": a[1].sum(dim=1).tolist(), "pairs": int(a[2].shape[0]),
-           "chunk": distance.pair_chunk(a[0].shape[1], a[2].shape[0],
-                                        distance.PAIR_SCRATCH_BYTES),
+           "chunk": chunk, "chunks": -(-int(a[2].shape[0]) // chunk),
            "scratch_budget_bytes": distance.PAIR_SCRATCH_BYTES,
            "peak_call_bytes": int(peak), "max_abs_err": diff,
            "near_ratio": near, "equals_b4_counts": True,
@@ -547,7 +647,8 @@ def b5_at(images, plain: bool = True, trimmed: bool = True) -> dict:
            **kernel_ms(lambda: distance.pair_match_counts(*a),
                        "pair_match_counts"),
            **kernel_bound("pair_match_counts", a)}
-    assert peak <= distance.PAIR_SCRATCH_BYTES + (1 << 20), row
+    assert not within_budget or (
+        peak <= distance.PAIR_SCRATCH_BYTES + (1 << 20)), row
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     return row
 
@@ -568,10 +669,11 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def b2_pixels(mod, ang, x, y, sigma, n_valid, radius, *_) -> int:
-    """Window pixels of the live keypoints that kernel B2 adds to a bin:
-    |dx|, |dy| <= wr = max(floor(4.5 sigma), 1), r^2 < wr^2 + 0.6, inside
-    the image (csrc/sift_walks.cu)."""
+def b2_windows(mod, ang, x, y, sigma, n_valid, radius, *_) -> tuple:
+    """The window pixels of the live keypoints that kernel B2 adds to a
+    bin: |dx|, |dy| <= wr = max(floor(4.5 sigma), 1), r^2 < wr^2 + 0.6,
+    inside the image (csrc/sift_walks.cu). Returns (selected [n, R, R],
+    their rows [n, R], columns [n, R], image width)."""
     import torch
 
     h, w = mod.shape
@@ -589,14 +691,15 @@ def b2_pixels(mod, ang, x, y, sigma, n_valid, radius, *_) -> int:
     r2 = dy[:, :, None] ** 2 + dx[:, None, :] ** 2
     sel = (iny[:, :, None] & inx[:, None, :]
            & (r2 < (wr * wr + 0.6)[:, :, None]) & ok[:, None, None])
-    return int(sel.sum())
+    return sel, py, px, w
 
 
-def b3_pixels(mod, ang, x, y, sigma, angle, n_valid, radius, magnif,
-              *_) -> int:
-    """Window pixels of the live keypoints that kernel B3 adds to a bin:
-    inside the loop bounds of vl/sift.c:1352-1357 and inside the +-2.5
-    support of the spatial hats after the rotation."""
+def b3_windows(mod, ang, x, y, sigma, angle, n_valid, radius, magnif,
+               *_) -> tuple:
+    """The window pixels of the live keypoints that kernel B3 adds to a
+    bin: inside the loop bounds of vl/sift.c:1352-1357 and inside the
+    +-2.5 support of the spatial hats after the rotation. Returns as
+    ``b2_windows``."""
     import torch
 
     h, w = mod.shape
@@ -620,7 +723,26 @@ def b3_pixels(mod, ang, x, y, sigma, angle, n_valid, radius, magnif,
     ny = (-st * dx + ct * dy) / sbp[:, :, None]
     sel = (iny[:, :, None] & inx[:, None, :] & (nx.abs() < 2.5)
            & (ny.abs() < 2.5) & ok[:, None, None])
-    return int(sel.sum())
+    return sel, yf + off, xf + off, w
+
+
+def b2_pixels(*a) -> int:
+    """Window pixels (keypoint x pixel) kernel B2 adds to a bin."""
+    return int(b2_windows(*a)[0].sum())
+
+
+def b3_pixels(*a) -> int:
+    """Window pixels (keypoint x pixel) kernel B3 adds to a bin."""
+    return int(b3_windows(*a)[0].sum())
+
+
+def read_pixels(sel, rows, cols, w: int) -> int:
+    """The distinct image pixels that windows ``sel`` (from ``b2_windows``
+    or ``b3_windows``) cover: what a walk must read, each pixel once."""
+    import torch
+
+    idx = rows[:, :, None] * w + cols[:, None, :]
+    return int(torch.unique(idx[sel].long()).numel())
 
 
 def kernel_bound(name: str, a: tuple) -> dict:
@@ -634,14 +756,17 @@ def kernel_bound(name: str, a: tuple) -> dict:
                   * max(d.shape[2] - 2, 0) for d in dogs)
         return bound(_nbytes(*dogs) + sum(caps) * (3 * 8 + 1) + 4 * len(dogs),
                      ops)
-    if name == "sift_orientation_hist":
-        n = a[2].shape[0]
-        return bound(_nbytes(a[0], a[1]) + 3 * 4 * n + 4 + n * 36 * 4,
-                     B2_OPS_PER_PIXEL * b2_pixels(*a))
-    if name == "sift_descriptors":
-        n = a[2].shape[0]
-        return bound(_nbytes(a[0], a[1]) + 4 * 4 * n + 4 + n * 128 * 4,
-                     B3_OPS_PER_PIXEL * b3_pixels(*a))
+    if name in ("sift_orientation_hist", "sift_descriptors"):
+        # the modulus and angle (f32 each) of the pixels the windows
+        # cover, the live keypoints' inputs, the count, the outputs
+        b2 = name == "sift_orientation_hist"
+        sel, rows, cols, w = (b2_windows if b2 else b3_windows)(*a)
+        n = int(a[5][0] if b2 else a[6][0])
+        return bound(read_pixels(sel, rows, cols, w) * 8
+                     + (3 if b2 else 4) * 4 * n + 4
+                     + a[2].shape[0] * (36 if b2 else 128) * 4,
+                     (B2_OPS_PER_PIXEL if b2 else B3_OPS_PER_PIXEL)
+                     * int(sel.sum()))
     if name in ("l1_two_nearest_bidir", "l1_two_nearest"):
         q, r, qv, rv = a
         nq, nr = int(qv.sum()), int(rv.sum())
@@ -836,6 +961,58 @@ def kernel_row(name: str, calls: list, err, kern, plain, library=None,
     return row
 
 
+def b4_plain(a: tuple):
+    """B4's plain version on a call ``a`` (qry, ref, qry_valid, ref_valid):
+    the one-direction plain 2-NN each way."""
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    q, r, qv, rv = a
+    return (distance.two_nearest_plain(q, r, qv, rv),
+            distance.two_nearest_plain(r, q, rv, qv))
+
+
+def check_b4(a: tuple, lib=None) -> dict:
+    """Kernel B4 on one call ``a`` against its plain version, both
+    directions: d1 / d2 rtol 1e-5, i1 equal where the 2-NN gap exceeds
+    1e-4 d1; the same bits twice and the bits of B7 run each way; with
+    ``lib`` (``l1_library`` on the live rows), d1 within 1e-4 of PyTorch's
+    own call. Returns the largest d1 error, the live counts and the share
+    of equal i1 per side."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    q, r, qv, rv = a
+    got = distance.two_nearest_bidir(*a)
+    again = distance.two_nearest_bidir(*a)
+    one_way = (distance.two_nearest(q, r, qv, rv),
+               distance.two_nearest(r, q, rv, qv))
+    plain = b4_plain(a)
+    err, i1_equal = 0.0, []
+    for side, ok in ((0, qv), (1, rv)):
+        (k1, k2, ki), (p1, p2, pi) = got[side], plain[side]
+        torch.testing.assert_close(k1[ok], p1[ok], rtol=1e-5, atol=0)
+        torch.testing.assert_close(k2[ok], p2[ok], rtol=1e-5, atol=0)
+        clear = ok & ((p2 - p1) > 1e-4 * p1)
+        assert torch.equal(ki[clear], pi[clear])
+        assert all(torch.equal(x, y)
+                   for x, y in zip(got[side], again[side])), \
+            "B4 is not deterministic"
+        assert all(torch.equal(x, y)
+                   for x, y in zip(got[side], one_way[side])), \
+            "B4 and B7 disagree on the bits"
+        if lib is not None:
+            torch.testing.assert_close(lib[side].values[:, 0] if side == 0
+                                       else lib[side].values[0], k1[ok],
+                                       rtol=1e-4, atol=0)
+        err = max(err, float((k1[ok] - p1[ok]).abs().max()))
+        i1_equal.append(float((ki[ok] == pi[ok]).float().mean()))
+    return {"max_abs_err": err, "queries": int(qv.sum()),
+            "references": int(rv.sum()), "slots": [int(q.shape[0]),
+                                                   int(r.shape[0])],
+            "i1_equal_frac": i1_equal}
+
+
 def check_kernels(rec: Recorder) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
     inputs of its first call, both on the card. Tolerances: B1 exact
@@ -918,41 +1095,13 @@ def check_kernels(rec: Recorder) -> list[dict]:
 
     a = args["l1_two_nearest_bidir"]
     q, r, qv, rv = a
-    got = distance.two_nearest_bidir(*a)
-    again = distance.two_nearest_bidir(*a)
-    one_way = (distance.two_nearest(q, r, qv, rv),
-               distance.two_nearest(r, q, rv, qv))
-
-    def plain_bidir():
-        return (distance.two_nearest_plain(q, r, qv, rv),
-                distance.two_nearest_plain(r, q, rv, qv))
-
-    plain = plain_bidir()
     lib_q, lib_r = q[qv].contiguous(), r[rv].contiguous()
-    lib = l1_library(lib_q, lib_r, both=True)
-    err, i1_equal = 0.0, []
-    for side, ok in ((0, qv), (1, rv)):
-        (k1, k2, ki), (p1, p2, pi) = got[side], plain[side]
-        torch.testing.assert_close(k1[ok], p1[ok], rtol=1e-5, atol=0)
-        torch.testing.assert_close(k2[ok], p2[ok], rtol=1e-5, atol=0)
-        clear = ok & ((p2 - p1) > 1e-4 * p1)
-        assert torch.equal(ki[clear], pi[clear])
-        assert all(torch.equal(x, y) for x, y in zip(got[side], again[side])), \
-            "B4 is not deterministic"
-        assert all(torch.equal(x, y)
-                   for x, y in zip(got[side], one_way[side])), \
-            "B4 and B7 disagree on the bits"
-        torch.testing.assert_close(lib[side].values[:, 0] if side == 0
-                                   else lib[side].values[0], k1[ok],
-                                   rtol=1e-4, atol=0)
-        err = max(err, float((k1[ok] - p1[ok]).abs().max()))
-        i1_equal.append(float((ki[ok] == pi[ok]).float().mean()))
-    add("l1_two_nearest_bidir", err, lambda: distance.two_nearest_bidir(*a),
-        plain_bidir, library=lambda: l1_library(lib_q, lib_r, both=True),
+    b4 = check_b4(a, l1_library(lib_q, lib_r, both=True))
+    add("l1_two_nearest_bidir", b4.pop("max_abs_err"),
+        lambda: distance.two_nearest_bidir(*a), lambda: b4_plain(a),
+        library=lambda: l1_library(lib_q, lib_r, both=True),
         library_note="three calls: torch.cdist(p=1), then topk(2, "
-                     "largest=False) along each side",
-        queries=int(qv.sum()), references=int(rv.sum()),
-        i1_equal_frac=i1_equal)
+                     "largest=False) along each side", **b4)
 
     a = args["pair_match_counts"]
     pk, diff, near = check_b5(a)
@@ -1170,12 +1319,14 @@ def mean_diff(out_a, out_b) -> float:
     return float(np.abs(out_a.astype(int) - out_b.astype(int)).mean())
 
 
-def cli_phase(images, out_exact) -> tuple[dict, np.ndarray]:
+def cli_phase(images, out_exact, flags=()) -> tuple[dict, np.ndarray]:
     """Phase 8: the command line in a fresh interpreter on 1.bmp..4.bmp,
-    held against the in-process ``Stitcher`` under the configuration its
-    flags give (``DEFAULT_CONFIG`` with bucketed canvases). ``-X
-    importtime`` lists every module the process imported. Returns the
-    report and the in-process bucketed canvas."""
+    with ``flags`` beside ``--timing``, held against the in-process
+    ``Stitcher`` under the configuration its flags give (by default
+    ``DEFAULT_CONFIG`` with bucketed canvases). ``-X importtime`` lists
+    every module the process imported; the BMP codec it took (its log
+    line) must be the native one. Returns the report and the in-process
+    canvas."""
     import tempfile
 
     from computervisionimagestich2_tpu_torch import cli
@@ -1186,7 +1337,8 @@ def cli_phase(images, out_exact) -> tuple[dict, np.ndarray]:
     with tempfile.TemporaryDirectory() as d:
         for k, img in enumerate(images):
             save_image(f"{d}/{k + 1}.bmp", img)
-        argv = ["--input", d, "--output", f"{d}/out.bmp", "--timing"]
+        argv = ["--input", d, "--output", f"{d}/out.bmp", "--timing",
+                *flags]
         t = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-X", "importtime", "-m",
@@ -1206,6 +1358,8 @@ def cli_phase(images, out_exact) -> tuple[dict, np.ndarray]:
     jax_pkg = [m for m in imported if m == "computervisionimagestich2_tpu"
                or m.startswith("computervisionimagestich2_tpu.")]
     assert not jax_pkg, jax_pkg
+    codec = [line for line in proc.stderr.splitlines() if " codec=" in line]
+    assert len(codec) == 1 and " codec=native " in codec[0], codec
     stages, launches, total = {}, None, None
     for line in proc.stdout.splitlines():
         if line.startswith("kernel launches:"):
@@ -1221,7 +1375,8 @@ def cli_phase(images, out_exact) -> tuple[dict, np.ndarray]:
     _, cold_s = run(st, images)
     out_b, warm_s, launches_b = counted_run(st, images)
     check_launches(launches_b, b4=3)
-    return {"canvas": list(out.shape), "total_s": total, "stage_s": stages,
+    return {"argv_flags": list(flags), "canvas": list(out.shape),
+            "total_s": total, "stage_s": stages, "codec": codec[0],
             "subprocess_wall_s": wall, "launches": launches,
             "modules_imported": len(imported), "jax_modules": len(jax_mods),
             "jax_package_modules": len(jax_pkg),
@@ -1286,7 +1441,7 @@ def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
     return rep
 
 
-def stitch_phase(images, config, cpu: str = "full", record=(),
+def stitch_phase(images, config, cpu: str | None = "full", record=(),
                  off_path=(), chain: bool = True, mesh_sp: int = 0) -> tuple:
     """One configuration's stitch of scrambled crops on the card: graph
     discovery finds the scene's chain (with ``chain``; else the edges it
@@ -1297,9 +1452,9 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
     branch of ``config.warp_model`` once per stitched image); no
     ``match_overflow`` is logged; the canvas against the port's CPU run
     (``cpu="full"``: from the images; ``"resumed"``: on the features the
-    card's run dumped, SIFT skipped). With ``mesh_sp``, both runs are mesh
-    Stitchers of that many stripes on a virtual mesh (the card's, the
-    CPU's), and B6 launches once per stripe of each edge. Returns (report,
+    card's run dumped, SIFT skipped; None: no CPU run). With ``mesh_sp``,
+    both runs are mesh Stitchers of that many stripes on a virtual mesh
+    (the card's, the CPU's), and B6 launches once per stripe of each edge. Returns (report,
     recorder, stitcher, the last blend's arguments: None where every edge
     took the sharded path, which calls no ``blend_edge``)."""
     import shutil
@@ -1307,27 +1462,10 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
 
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
     from computervisionimagestich2_tpu_torch.parallel import make_mesh
-    from computervisionimagestich2_tpu_torch.utils import obs
 
     def mesh(device):
         return (make_mesh(mesh_sp, sp=mesh_sp, devices=[device] * mesh_sp)
                 if mesh_sp else None)
-
-    warned, blends, sift_dropped = [], [], []
-    warn, blend, sift = obs.warn, stm.blend_edge, stm.sift_extract_stats
-
-    def warn_rec(stage, **kv):
-        warned.append(stage)
-        warn(stage, **kv)
-
-    def blend_rec(*a):
-        blends.append(a)
-        return blend(*a)
-
-    def sift_rec(*a):
-        f, st = sift(*a)
-        sift_dropped.append(st.tolist())
-        return f, st
 
     rep = {}
     with tempfile.TemporaryDirectory() as d:
@@ -1335,16 +1473,11 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
         st = stm.Stitcher(config, device="cuda", artifact_dir=art,
                           mesh=mesh("cuda:0"))
         seen = record_ordering(st)
-        obs.warn, stm.blend_edge, stm.sift_extract_stats = (
-            warn_rec, blend_rec, sift_rec)
-        try:
-            with Recorder(record) as rec:
-                _, rep["cold_s"] = run(st, images)
-            rep["stage_s_cold"] = dict(st.stage_times)
-            out, rep["warm_s"], launches = counted_run(st, images)
-        finally:
-            obs.warn, stm.blend_edge, stm.sift_extract_stats = (
-                warn, blend, sift)
+        with telemetry() as tel, Recorder(record) as rec:
+            _, rep["cold_s"] = run(st, images)
+        rep["stage_s_cold"] = dict(st.stage_times)
+        out, rep["warm_s"], launches = counted_run(st, images)
+        warned = [w["stage"] for w in tel["warnings"]]
         rep["edges"] = check_chain(seen) if chain else graph_edges(seen)
         rep["start"] = seen["start"]
         n_stitched = len(images) - 1  # a spanning tree ("skip" revisits)
@@ -1354,6 +1487,13 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
         assert launches[B6_BRANCH[config.warp_model]] == n_stitched * max(
             mesh_sp, 1), launches
         assert "match_overflow" not in warned, warned
+        rep.update(canvas=list(out.shape),
+                   stage_s_warm=dict(st.stage_times), launches=launches,
+                   warnings=sorted(set(warned)),
+                   sift_dropped=tel["sift_dropped"])
+        assert out.mean() > 20, "empty canvas"
+        if cpu is None:
+            return rep, rec, st, tel["last_blend"]
         t = time.perf_counter()
         if cpu == "resumed":
             shutil.copytree(f"{d}/card", f"{d}/cpu")
@@ -1366,13 +1506,9 @@ def stitch_phase(images, config, cpu: str = "full", record=(),
         out_cpu = st_cpu.stitch(images, resume=cpu == "resumed")
         rep["cpu_s"] = time.perf_counter() - t
         rep["cpu_edges"] = graph_edges(seen_cpu)
-    rep.update(canvas=list(out.shape), cpu_canvas=list(out_cpu.shape),
-               cpu_run=cpu, mad_vs_cpu=canvas_vs_cpu(out, out_cpu),
-               stage_s_warm=dict(st.stage_times), launches=launches,
-               warnings=sorted(set(warned)),
-               sift_dropped=sift_dropped[:len(images)])
-    assert out.mean() > 20, "empty canvas"
-    return rep, rec, st, blends[-1] if blends else None
+    rep.update(cpu_canvas=list(out_cpu.shape), cpu_run=cpu,
+               mad_vs_cpu=canvas_vs_cpu(out, out_cpu))
+    return rep, rec, st, tel["last_blend"]
 
 
 def check_walks(rec: "Recorder") -> dict:
@@ -1565,18 +1701,12 @@ def batched_phase(h: int, w: int, step: int, scale: int,
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
     from computervisionimagestich2_tpu_torch.ops import _native
     from computervisionimagestich2_tpu_torch.parallel import batched
-    from computervisionimagestich2_tpu_torch.utils import obs
 
     cfg = DEFAULT_CONFIG
     pans = np.stack([np.stack(crops(h, w, step, scale, seed=sd))
                      for sd in BATCH_SEEDS])
     n_pan, k = pans.shape[:2]
     canvas = batched.default_canvas(h, w, k, cfg)
-    warned, warn = [], obs.warn
-
-    def warn_rec(stage, **kv):
-        warned.append(stage)
-        warn(stage, **kv)
 
     def run_batch():
         t = time.perf_counter()
@@ -1584,15 +1714,13 @@ def batched_phase(h: int, w: int, step: int, scale: int,
         torch.cuda.synchronize()
         return out, plans, time.perf_counter() - t
 
-    obs.warn = warn_rec
-    try:
+    with telemetry() as tel:
         _, _, cold_s = run_batch()
-        _native.reset_launch_counts()
-        out, plans, t1 = run_batch()
-        launches = _native.launch_counts()
-        warm = [t1] + [run_batch()[2] for _ in range(2)]
-    finally:
-        obs.warn = warn
+    warned = [w["stage"] for w in tel["warnings"]]
+    _native.reset_launch_counts()
+    out, plans, t1 = run_batch()
+    launches = _native.launch_counts()
+    warm = [t1] + [run_batch()[2] for _ in range(2)]
     n_edges = n_pan * (k - 1)
     check_launches(launches, {"pair_match_counts"}, b4=n_edges)
     assert launches["detect_compact"] == n_pan * k, launches
@@ -2134,6 +2262,362 @@ def cli_sp_phase(images) -> dict:
     return {"argv_sp": n + 1, "returncode": proc.returncode, "error": err}
 
 
+# phase 17: BASELINE config 4 (4K frames, gain compensation) on the card
+UHD_HW = (2160, 3840)  # UHD frames, height x width
+UHD_STEP = 2240  # the 58% step of phase 7's crops(1440, 1080, 630, ...)
+UHD_SCALE = 6  # phase 7's feature scale: the same keypoints per pixel
+
+
+def config4():
+    """BASELINE config 4 as scripts/bench_configs.py:109-112 defines it:
+    ``DEFAULT_CONFIG`` with ``blend.gain_compensation=True``."""
+    import dataclasses
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+
+    return dataclasses.replace(DEFAULT_CONFIG, blend=dataclasses.replace(
+        DEFAULT_CONFIG.blend, gain_compensation=True))
+
+
+def timed_kernel(name: str, a: tuple, kern, plain=None, reps: int = 3,
+                 **extra) -> dict:
+    """One call ``a`` of kernel ``name``: device time (``kernel_ms``), the
+    bound from these inputs and the share; with ``plain``, its plain
+    version's time (CUDA events over ``reps`` calls)."""
+    row = {**extra, **kernel_ms(kern, name), **kernel_bound(name, a)}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    if plain is not None:
+        row["plain_ms"] = cuda_ms(plain, reps=reps)
+    return row
+
+
+def uhd_kernels(rec: Recorder, feats, edge: list) -> dict:
+    """Phase 17b: every kernel of the path against its plain version on
+    its 4K calls, with device time, bound and share: B1 exactly on the
+    four octaves of the first image; B2 and B3 on the first octave's
+    first call (``check_walks``' tolerances); B4 on the first edge's call
+    (``check_b4``) and on the edge ``edge`` at the extractor's full
+    capacity; B5 on the recorded call (against plain) and on the four
+    images at full capacity (chunked within its scratch budget); B6 exact
+    on the last and largest canvas."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import (detect, distance,
+                                                         sift_walks)
+
+    walks = check_walks(rec)
+    rows = {}
+    a = rec.args["detect_compact"]
+    rows["detect_compact"] = timed_kernel(
+        "detect_compact", a, lambda: detect.detect_compact_octaves(*a),
+        **walks["detect_compact"])
+    a = rec.args["sift_orientation_hist"]
+    rows["sift_orientation_hist"] = timed_kernel(
+        "sift_orientation_hist", a, lambda: sift_walks.orientation_hist(*a),
+        lambda: sift_walks.orientation_hist_plain(*a),
+        max_abs_err=walks["walks"]["hist_max_abs_err"],
+        keypoints=int(a[5][0]), slots=int(a[2].shape[0]),
+        mod_shape=list(a[0].shape), window_pixels=b2_pixels(*a))
+    b = rec.args["sift_descriptors"]
+    rows["sift_descriptors"] = timed_kernel(
+        "sift_descriptors", b, lambda: sift_walks.descriptors(*b),
+        lambda: sift_walks.descriptors_plain(*b),
+        max_abs_err=walks["walks"]["desc_max_abs_err"],
+        keypoints=int(b[6][0]), slots=int(b[2].shape[0]),
+        window_pixels=b3_pixels(*b))
+    c = rec.args["l1_two_nearest_bidir"]
+    q, r = c[0][c[2]].contiguous(), c[1][c[3]].contiguous()
+    b4 = timed_kernel("l1_two_nearest_bidir", c,
+                      lambda: distance.two_nearest_bidir(*c),
+                      lambda: b4_plain(c), **check_b4(c))
+    b4["library_ms"] = cuda_ms(lambda: l1_library(q, r, both=True), reps=3)
+    i, j = edge
+    full = (feats.desc[i], feats.desc[j], feats.valid[i], feats.valid[j])
+    b4["at_full_capacity"] = timed_kernel(
+        "l1_two_nearest_bidir", full,
+        lambda: distance.two_nearest_bidir(*full), edge=edge,
+        slots=int(feats.desc.shape[1]),
+        live=[int(full[2].sum()), int(full[3].sum())])
+    rows["l1_two_nearest_bidir"] = b4
+    d = rec.args["pair_match_counts"]
+    pairs = torch.tensor([(i, j) for i in range(feats.desc.shape[0])
+                          for j in range(i + 1, feats.desc.shape[0])],
+                         dtype=torch.int32, device=feats.desc.device)
+    rows["pair_match_counts"] = {
+        **b5_on(d), "plain_ms": cuda_ms(
+            lambda: distance.pair_match_counts_plain(*d), reps=3),
+        "at_full_capacity": b5_on((feats.desc.contiguous(),
+                                   feats.valid.contiguous(), pairs, d[3]),
+                                  plain=False)}
+    e = rec.calls["warp_image"][-1]
+    rows["warp_image"] = {**b6_at(e), "plain_ms": cuda_ms(
+        lambda: b6_plain(*e), reps=3), "max_abs_err": b6_err(e)}
+    return rows
+
+
+def uhd_warm(st, images, edges: list, n_octaves: int) -> dict:
+    """Phase 17a's warm runs: the launches of one run (B1 once per image,
+    B2 and B3 once per level batch of every octave of every image, B4 and
+    B6 once per edge, B5 one call), the median of three, the stage times,
+    the peak device memory over them and one ``torch.profiler`` pass."""
+    import torch
+
+    cfg = st.config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, t1, launches = counted_run(st, images)
+    warm = [t1] + [run(st, images)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(launches, b4=len(edges), model=cfg.warp_model)
+    walks = len(images) * n_octaves * cfg.sift.n_levels
+    assert launches["detect_compact"] == len(images), launches
+    assert launches["sift_orientation_hist"] == walks, (walks, launches)
+    assert launches["sift_descriptors"] == walks, (walks, launches)
+    assert launches["pair_match_counts"] == 1, launches
+    assert launches[B6_BRANCH[cfg.warp_model]] == len(edges), launches
+    return out, {"warm_median_s": statistics.median(warm), "warm_s": warm,
+                 "stage_s_warm": dict(st.stage_times), "launches": launches,
+                 "peak_mem_gib": peak / 2 ** 30,
+                 "held_before_gib": base / 2 ** 30,
+                 "profile": profile_run(st, images)}
+
+
+def last_edge_vs_cpu(st, images) -> dict:
+    """Phase 17c: the last edge's composite + blend (warp, gain, blend,
+    u8 truncation: ``stitcher._composite_and_blend``) of a warm run on the
+    card, again on the CPU (the plain versions) on the same arguments:
+    canvas within +-3 px and MAD <= 3 u8 levels (``canvas_vs_cpu``)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    last, fn = {}, stm._composite_and_blend
+
+    def rec(*a):
+        out = fn(*a)
+        last.update(args=a, out=out)
+        return out
+
+    stm._composite_and_blend = rec
+    try:
+        st.stitch(images)
+    finally:
+        stm._composite_and_blend = fn
+    args = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                 for x in last["args"])
+    t = time.perf_counter()
+    out_cpu = fn(*args)
+    secs = time.perf_counter() - t
+    card = u8(last["out"])
+    return {"edge_canvas": list(card.shape), "comp_hw": list(args[5]),
+            "cpu_s": secs, "mad_vs_cpu": canvas_vs_cpu(card, u8(out_cpu))}
+
+
+def sift_counters(images, cfg) -> tuple[list, list]:
+    """The SIFT of ``images`` alone (``Stitcher.prepare``) under ``cfg``:
+    per image the four drop counters and the live keypoints before the
+    final capacity (``telemetry``)."""
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    with telemetry() as tel:
+        stm.Stitcher(cfg, device="cuda").prepare(images)
+    return tel["sift_dropped"], tel["sift_live"]
+
+
+def smallest_caps(images, cfg, match_dropped: list) -> tuple:
+    """Phase 17d's capacities: the smallest ``sift.max_keypoints_per_octave``
+    (a multiple of 128, by bisection between 128 and the first octave's
+    area / 128, past which the field changes nothing),
+    ``sift.max_keypoints`` (the most live keypoints of an image) and
+    ``match.max_matches`` (the most matches of an edge, from
+    ``match_dropped`` of a run at these SIFT capacities) at which the
+    counters read what no field can lower; a field whose counter reads
+    that at its default keeps it. No field raises the candidate capacity
+    (area / 128, at most 32768), B1's 128 hits a row or an octave's own
+    area / 128 keypoints, so the candidates' and refined keypoints'
+    counters may keep a floor: it is recorded. Returns the config, the
+    floor and a report of the passes."""
+    import dataclasses
+
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    R = dataclasses.replace
+    passes = []
+
+    def with_octave(cap):
+        c = R(cfg, sift=R(cfg.sift, max_keypoints_per_octave=cap))
+        stats, live = sift_counters(images, c)
+        passes.append({"max_keypoints_per_octave": cap, "sift_dropped": stats})
+        return stats, live
+
+    h, w = images[0].shape[:2]
+    top = -(-(h * w // 128) // 128) * 128
+    floor = [s[:3] for s in with_octave(top)[0]]
+
+    def binds(stats):
+        return [s[:3] for s in stats] != floor
+
+    octave = cfg.sift.max_keypoints_per_octave
+    stats, live = with_octave(octave)
+    if binds(stats):
+        lo, hi = 128, top
+        while hi - lo > 128:
+            mid = (lo + hi) // 256 * 128
+            if binds(with_octave(mid)[0]):
+                lo = mid
+            else:
+                hi = mid
+        octave = hi
+        stats, live = with_octave(octave)
+    final = max(live) if any(s[3] for s in stats) else cfg.sift.max_keypoints
+    raised = R(cfg, sift=R(cfg.sift, max_keypoints_per_octave=octave,
+                           max_keypoints=final))
+    if raised.sift != cfg.sift:
+        with telemetry() as tel:
+            stm.Stitcher(raised, device="cuda").stitch(images)
+        match_dropped = tel["match_dropped"]
+    if any(match_dropped):
+        raised = R(raised, match=R(raised.match, max_matches=(
+            cfg.match.max_matches + max(match_dropped))))
+    return raised, floor, {
+        "max_keypoints_per_octave": octave, "max_keypoints": final,
+        "max_matches": raised.match.max_matches,
+        "defaults": [cfg.sift.max_keypoints_per_octave,
+                     cfg.sift.max_keypoints, cfg.match.max_matches],
+        "octave_field_past_which_nothing_changes": top,
+        "floor_no_field_lowers": floor,
+        "live_keypoints_before_final_cap": live,
+        "match_dropped_at_raised_sift": match_dropped,
+        "sift_passes": passes}
+
+
+def raised_caps_phase(images, cfg, match_dropped: list) -> dict:
+    """Phase 17d: the stitch at ``smallest_caps`` (``stitch_phase``: the
+    chain, every kernel launched, no ``match_overflow``; every SIFT counter
+    at its floor, 0 where a field reaches it); its warm wall, profile and
+    peak memory (``uhd_warm``); B4 and B5 on its calls beside their
+    bounds, B5's chunks and what its call allocates (a pair's scratch
+    alone passes the budget near 49k slots)."""
+    from computervisionimagestich2_tpu_torch.ops import distance
+
+    raised, floor, caps = smallest_caps(images, cfg, match_dropped)
+    rep, rec, st, last_blend = stitch_phase(
+        images, raised, cpu=None,
+        record=("detect_compact", "l1_two_nearest_bidir",
+                "pair_match_counts"))
+    del last_blend  # its canvases must not count in the peak below
+    assert [s[:3] for s in rep["sift_dropped"]] == floor, rep["sift_dropped"]
+    assert not any(s[3] for s in rep["sift_dropped"]), rep["sift_dropped"]
+    n_octaves = len(rec.args["detect_compact"][0])
+    a = rec.args["l1_two_nearest_bidir"]
+    b4 = timed_kernel("l1_two_nearest_bidir", a,
+                      lambda: distance.two_nearest_bidir(*a),
+                      queries=int(a[2].sum()), references=int(a[3].sum()),
+                      slots=[int(a[0].shape[0]), int(a[1].shape[0])])
+    b5 = b5_on(rec.args["pair_match_counts"], plain=False,
+               within_budget=False)
+    del rec, a
+    _, warm = uhd_warm(st, images, rep["edges"], n_octaves)
+    return {"caps": caps, **rep, **warm, "l1_two_nearest_bidir": b4,
+            "pair_match_counts": b5}
+
+
+def codec_phase(images) -> dict:
+    """Phase 17e, the host's BMP I/O at 4K: the four frames written by the
+    native codec, then read by it (``read_bmp`` each, and ``load_batch``)
+    and by the numpy codec, equal pixels; the seconds of each."""
+    import tempfile
+
+    from computervisionimagestich2_tpu_torch.native import codec
+    from computervisionimagestich2_tpu_torch.utils import bmp
+
+    rep = {}
+    with tempfile.TemporaryDirectory() as d:
+        paths = [f"{d}/{k + 1}.bmp" for k in range(len(images))]
+        for name, write in (("numpy", bmp.write_bmp),
+                            ("native", codec.write_bmp)):
+            t = time.perf_counter()
+            for p, img in zip(paths, images):
+                write(p, img)
+            rep[f"write_s_{name}"] = time.perf_counter() - t
+        rep["file_bytes"] = [Path(p).stat().st_size for p in paths]
+        for name, read in (("numpy", bmp.read_bmp),
+                           ("native", codec.read_bmp),
+                           ("numpy_again", bmp.read_bmp),
+                           ("native_again", codec.read_bmp)):
+            t = time.perf_counter()
+            got = [read(p) for p in paths]
+            rep[f"load_s_{name}"] = time.perf_counter() - t
+            assert all(np.array_equal(g, i) for g, i in zip(got, images))
+        t = time.perf_counter()
+        batch = codec.load_batch(paths)
+        rep["load_batch_s_native"] = time.perf_counter() - t
+        assert np.array_equal(batch, np.stack(images))
+    return rep
+
+
+def config4_phase(images, kernels: list) -> None:
+    """Phase 17, BASELINE config 4 (``config4``) on four scrambled frames:
+    (a) a cold stitch recording every kernel call and the telemetry, the
+    chain; (b) each kernel against its plain version on its 4K calls
+    (``uhd_kernels``); warm runs with launches, walls, peak memory and
+    profile (``uhd_warm``); (c) the last edge's composite + blend against
+    the CPU (``last_edge_vs_cpu``); (d) the stitch at the smallest
+    capacities that zero the counters (``raised_caps_phase``); (e) the
+    command line with ``--gain-compensation`` and the BMP codecs
+    (``cli_phase``, ``codec_phase``). Adds each kernel's 4K launches,
+    device time and calls to its kernels row (``at_4k``)."""
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    t = time.perf_counter()
+    cfg4 = config4()
+    st = stm.Stitcher(cfg4, device="cuda")
+    seen = record_ordering(st)
+    with telemetry() as tel, Recorder() as rec:
+        out_4k, cold_s = run(st, images)
+    edges = check_chain(seen)
+    assert out_4k.mean() > 20, "empty canvas"
+    emit("config4_4k_cold", t, images=[list(i.shape) for i in images],
+         scramble=SCRAMBLE, edges=edges, start=seen["start"],
+         canvas=list(out_4k.shape),
+         canvas_mpx=out_4k.shape[0] * out_4k.shape[1] / 1e6, cold_s=cold_s,
+         stage_s_cold=dict(st.stage_times), match_overflow=[
+             w for w in tel["warnings"] if w["stage"] == "match_overflow"],
+         **{k: v for k, v in tel.items() if k != "last_blend"})
+    del tel["last_blend"]  # its canvases must not count in the peaks below
+    t = time.perf_counter()
+    n_octaves = len(rec.args["detect_compact"][0])
+    uhd = uhd_kernels(rec, st._feats_stacked, edges[0])
+    del rec  # the recorded inputs must not count in the peak below
+    emit("config4_4k_kernels_vs_plain", t, **uhd)
+    t = time.perf_counter()
+    out, warm = uhd_warm(st, images, edges, n_octaves)
+    emit("config4_4k_warm", t, warm_equals_cold=bool(np.array_equal(
+        out, out_4k)), **warm)
+    t = time.perf_counter()
+    emit("config4_4k_last_edge_vs_cpu", t, **last_edge_vs_cpu(st, images))
+    del st
+    t = time.perf_counter()
+    raised = raised_caps_phase(images, cfg4, tel["match_dropped"])
+    emit("config4_4k_raised_caps", t, **raised)
+    t = time.perf_counter()
+    rep, _ = cli_phase(images, out_4k, flags=("--gain-compensation",))
+    emit("config4_4k_cli", t, **rep, **codec_phase(images))
+    for k in kernels:
+        name = k["name"]
+        k["at_4k"] = {
+            "launches": warm["launches"][name],
+            "device_ms_per_panorama": warm["profile"]["kernels"][name]["ms"],
+            "raised_caps_launches": raised["launches"][name],
+            "raised_caps_device_ms_per_panorama":
+                raised["profile"]["kernels"][name]["ms"],
+            **uhd.get(name, {})}
+        if name in ("l1_two_nearest_bidir", "pair_match_counts"):
+            k["at_4k"]["raised_caps"] = raised[name]
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -2159,7 +2643,12 @@ def main() -> int:
 
     t = time.perf_counter()
     lib = _native.build()
-    emit("build", t, library=str(lib.relative_to(ROOT)))
+    from computervisionimagestich2_tpu_torch.native import codec
+    from computervisionimagestich2_tpu_torch.utils import io as image_io
+
+    assert image_io.codec() is codec, codec.unavailable_reason()
+    emit("build", t, library=str(lib.relative_to(ROOT)),
+         bmp_codec=str(codec.library_path().relative_to(ROOT)))
 
     # -- 3. cold default path at 4 x 512x384, scrambled, recording inputs
     t = time.perf_counter()
@@ -2236,28 +2725,13 @@ def main() -> int:
     # -- 7. north-star size 4 x 1440x1080, scrambled, default path
     t = time.perf_counter()
     images = images_big = scrambled(crops(1440, 1080, 630, 6, seed=1))
-    telemetry = {}
-    sift_fn, plan_fn = stm.sift_extract_stats, stm.plan_edges
-
-    def sift_rec(*a):
-        f, s = sift_fn(*a)
-        telemetry.setdefault("sift_dropped", []).append(s.tolist())
-        return f, s
-
-    def plan_rec(*a):
-        plan = plan_fn(*a)
-        telemetry["match_dropped"] = plan[:, 22].astype(int).tolist()
-        return plan
-
     torch.cuda.reset_peak_memory_stats()
-    stm.sift_extract_stats, stm.plan_edges = sift_rec, plan_rec
-    try:
-        st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
-        seen = record_ordering(st)
-        with Recorder(("detect_compact", "warp_image")) as rec:
-            out_big, cold_s = run(st, images)
-    finally:
-        stm.sift_extract_stats, stm.plan_edges = sift_fn, plan_fn
+    st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
+    seen = record_ordering(st)
+    with telemetry() as tel, Recorder(("detect_compact",
+                                       "warp_image")) as rec:
+        out_big, cold_s = run(st, images)
+    del tel["last_blend"]  # its canvases must not count in the peak below
     b1 = next(k for k in kernels if k["name"] == "detect_compact")
     a = rec.args["detect_compact"]
     b1["at_1440x1080"] = {
@@ -2287,7 +2761,8 @@ def main() -> int:
          canvas=list(out_big.shape), cold_s=cold_s,
          warm_median_s=statistics.median(warm), warm_s=warm,
          stage_s_cold=stages_big, stage_s_warm=dict(st.stage_times),
-         launches_per_run=launches_big, **telemetry,
+         launches_per_run=launches_big, sift_dropped=tel["sift_dropped"],
+         match_dropped=tel["match_dropped"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          detect_compact=b1["at_1440x1080"],
          warp_image=b6["at_1440x1080_last_canvas"])
@@ -2374,23 +2849,12 @@ def main() -> int:
     emit("o_min_-1_512x384", t, **rep)
     t = time.perf_counter()
     st = stm.Stitcher(omin, device="cuda")
-    sift_fn, dropped = stm.sift_extract_stats, []
-
-    def sift_rec(*a):
-        f, s = sift_fn(*a)
-        dropped.append(s.tolist())
-        return f, s
-
-    stm.sift_extract_stats = sift_rec
-    try:
-        with Recorder(("detect_compact",)) as rec:
-            st.prepare(images_big)
-            torch.cuda.synchronize()
-    finally:
-        stm.sift_extract_stats = sift_fn
+    with telemetry() as tel, Recorder(("detect_compact",)) as rec:
+        st.prepare(images_big)
+        torch.cuda.synchronize()
     prep_s = time.perf_counter() - t
     emit("o_min_-1_1440x1080_features", t, prepare_s=prep_s,
-         sift_dropped=dropped, first_octave=list(
+         sift_dropped=tel["sift_dropped"], first_octave=list(
              rec.args["detect_compact"][0][0].shape[1:]),
          detect_compact=check_b1(rec.args["detect_compact"]),
          live_features=st._feats_stacked.valid.sum(dim=1).tolist())
@@ -2449,6 +2913,11 @@ def main() -> int:
     emit("mesh_shard_batch_512x384", t, **mesh_batch_phase(512, 384, 224, 2))
     t = time.perf_counter()
     emit("cli_sp_refused", t, **cli_sp_phase(images_512))
+
+    # -- 17. BASELINE config 4 at 4 x 3840x2160: 4K frames, gain
+    # compensation, every canvas above both blend gates
+    config4_phase(scrambled(crops(*UHD_HW, UHD_STEP, UHD_SCALE, seed=4)),
+                  kernels)
 
     assert len(kernels) == len(KERNELS), [k["name"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -88,13 +88,13 @@ def make_parser() -> argparse.ArgumentParser:
                    help="skip the equalization/luma-mix tail")
     p.add_argument("--warp-model", choices=["bilinear", "projective"],
                    default="bilinear",
-                   help="bilinear = reference-exact; projective = true DLT "
-                        "(not ported)")
+                   help="bilinear = reference-exact; projective = true DLT")
     p.add_argument("--gain-compensation", action="store_true",
-                   help="match overlap color before blending")
+                   help="match overlap luma before blending")
     p.add_argument("--gain-mode", choices=["luma", "rgb"], default="luma",
                    help="gain-compensation statistic: one scalar luma gain "
-                        "(not ported) or per-channel gains")
+                        "or per-channel gains (also removes tint steps; "
+                        "recommended with --seam-band)")
     p.add_argument("--blend-dtype", choices=["auto", "f32", "bf16"],
                    default="auto",
                    help="auto (default) = bf16 pyramid blend on canvases "

@@ -75,7 +75,7 @@ def half_plane_mask(a: torch.Tensor, b: torch.Tensor,
 
 
 def blend_stacked(s0: torch.Tensor, levels: int, blur_sigma: float = 2.0,
-                  dtype: str = "f32", blur_impl: str = "fir") -> torch.Tensor:
+                  blur_impl: str = "fir", dtype: str = "f32") -> torch.Tensor:
     """Pyramid blend of a stacked [H, W, 7] canvas (a | b | mask):
     downsweep (blur + halve), per-level Laplacian masked lerp, top-down
     reconstruction with clamping. dtype="bf16" runs the chain in bfloat16,
@@ -143,7 +143,7 @@ def blend_two_images(a: torch.Tensor, b: torch.Tensor,
     levels = n_levels(h, w, level_mode)
     mask0 = half_plane_mask(a, b, content_h)
     s0 = torch.cat([a, b, mask0[..., None]], dim=-1)
-    return blend_stacked(s0, levels, blur_sigma, dtype, blur_impl)
+    return blend_stacked(s0, levels, blur_sigma, blur_impl, dtype)
 
 
 def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
@@ -172,7 +172,7 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
     win = stacked[:, s:s + wb]
     levels = max(1, min(n_levels(h, wb, level_mode),
                         int(math.log2(max(band // 8, 2)))))
-    blended_win = blend_stacked(win, levels, blur_sigma, dtype, blur_impl)
+    blended_win = blend_stacked(win, levels, blur_sigma, blur_impl, dtype)
     out = torch.where(mask0[..., None] == 1.0, a, b)
     out[:, s + band:s + 3 * band] = blended_win[:, band:3 * band]
     return out

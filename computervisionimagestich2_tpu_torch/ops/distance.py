@@ -53,8 +53,8 @@ def two_nearest_plain(qry: torch.Tensor, ref: torch.Tensor,
         return d1, d2, i1
     for s in range(0, nb, chunk):
         e = min(nb, s + chunk)
-        d = torch.sum(torch.abs(qry[s:e, None, :] - ref[None, :, :]), dim=-1)
-        d1[s:e], d2[s:e], i1[s:e] = _top2(d, ref_valid[None, :])
+        d1[s:e], d2[s:e], i1[s:e] = _top2(pairwise_l1(qry[s:e], ref),
+                                          ref_valid[None, :])
     d1 = torch.where(qry_valid, d1, BIG)
     d2 = torch.where(qry_valid, d2, BIG)
     return d1, d2, i1
@@ -70,6 +70,12 @@ def _strategy(distance: str, method: str) -> str | None:
     if distance == "l2":
         return "l2"
     raise ValueError(f"unknown distance {distance!r}")
+
+
+def pairwise_l1(qry: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """L1 distances [NB, NA] between qry [NB, D] and ref [NA, D]
+    (VlDistanceL1, vl/mathop.c:308), summed over D in order."""
+    return torch.sum(torch.abs(qry[:, None, :] - ref[None, :, :]), dim=-1)
 
 
 def pairwise_l2sq(qry: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

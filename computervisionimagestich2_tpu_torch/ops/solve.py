@@ -126,6 +126,15 @@ def solve_warp(src_xy: torch.Tensor, dst_xy: torch.Tensor,
     return flat + init if init is not None else flat
 
 
+def solve_warp_batched(src_xy: torch.Tensor, dst_xy: torch.Tensor,
+                       weights: torch.Tensor | None = None,
+                       init: torch.Tensor | None = None) -> torch.Tensor:
+    """``solve_warp`` over a batch: src_xy, dst_xy [B, N, 2], weights [N]
+    shared by the batch (the JAX package's ``vmap`` of ``solve_warp`` with
+    in_axes (0, 0, None)); ``solve_warp`` batches leading axes itself."""
+    return solve_warp(src_xy, dst_xy, weights, init)
+
+
 def _cholesky(a: torch.Tensor) -> list:
     """Lower Cholesky factor of SPD a [..., n, n] as a nested list of
     [...] tensors, unrolled in the JAX package's ``_solve_spd`` order:

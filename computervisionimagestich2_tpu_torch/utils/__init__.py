@@ -1,4 +1,5 @@
-"""Host utilities: image I/O (``io.py`` on the BMP codec of ``bmp.py``),
+"""Host utilities: image I/O (``io.py``, on the native codec of
+``native/`` or the numpy BMP codec of ``bmp.py``),
 logging and stage timing (``obs.py``) and the dump / resume artifacts
 (``artifacts.py``). The port's own copies of the JAX package's
 ``utils`` modules; nothing here imports that package."""

@@ -5,6 +5,8 @@
   PANORAMA_TPU_LOG is set (not "0") or after ``set_verbose(True)``;
 - ``warn``       -- always-on warnings for what must never pass silently
   (static-capacity truncation);
+- ``log_codec``  -- the BMP codec ``utils.io`` took, always printed, once
+  per process;
 - ``log_sift_overflow`` -- the per-image SIFT truncation report, and
   ``log_sift_overflow_async``, the same from a side thread;
 - ``StageTimer`` -- wall-clock seconds per stage (``Stitcher.stage_times``,
@@ -44,6 +46,16 @@ def warn(stage: str, **kv) -> None:
     (e.g. static-capacity truncation)."""
     items = " ".join(f"{k}={v}" for k, v in kv.items())
     print(f"[panorama-torch] WARNING {stage} {items}", file=sys.stderr,
+          flush=True)
+
+
+def log_codec(name: str, **kv) -> None:
+    """Which BMP codec ``utils.io`` took ("native" or "numpy", with the
+    library or the reason the native one is unavailable). ``utils.io``
+    calls it once per process, on its first image; always printed, as
+    the choice must never pass silently."""
+    items = "".join(f" {k}={v}" for k, v in kv.items())
+    print(f"[panorama-torch] codec={name}{items}", file=sys.stderr,
           flush=True)
 
 

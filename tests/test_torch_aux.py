@@ -2,7 +2,8 @@
 counterpart on the CPU: ``reprojection_errors`` and ``ransac_config_call``
 (models/ransac.py), ``equalize_gray`` (models/equalization.py),
 ``gather_pixels`` (ops/warp.py), ``log_sift_overflow_async`` and ``trace``
-(utils/obs.py).
+(utils/obs.py), ``pairwise_l1`` (ops/distance.py) and
+``solve_warp_batched`` (ops/solve.py).
 """
 import os
 
@@ -16,11 +17,15 @@ from computervisionimagestich2_tpu.config import RansacConfig as JRansac
 from computervisionimagestich2_tpu.core.types import MatchPairs as JPairs
 from computervisionimagestich2_tpu.models import equalization as jeq
 from computervisionimagestich2_tpu.models import ransac as jransac
+from computervisionimagestich2_tpu.ops import distance as jdistance
+from computervisionimagestich2_tpu.ops import solve as jsolve
 from computervisionimagestich2_tpu.ops import warp as jwarp
 from computervisionimagestich2_tpu_torch.config import RansacConfig
 from computervisionimagestich2_tpu_torch.core.types import MatchPairs
 from computervisionimagestich2_tpu_torch.models import equalization as teq
 from computervisionimagestich2_tpu_torch.models import ransac as transac
+from computervisionimagestich2_tpu_torch.ops import distance as tdistance
+from computervisionimagestich2_tpu_torch.ops import solve as tsolve
 from computervisionimagestich2_tpu_torch.ops import rng as trng
 from computervisionimagestich2_tpu_torch.ops import warp as twarp
 from computervisionimagestich2_tpu_torch.utils import obs
@@ -146,3 +151,33 @@ def test_trace_writes_a_profile(monkeypatch, tmp_path):
     assert len(files) == 1, list(tmp_path.rglob("*"))
     text = files[0].read_text()
     assert "aten::matmul" in text or "aten::mm" in text
+
+
+def test_pairwise_l1_matches_jax():
+    """All-pairs L1 of 128-d descriptors, rtol 1e-6 (sums of 128 terms in
+    another order); two_nearest_plain is built on it."""
+    rng = np.random.default_rng(4)
+    q = rng.uniform(0, 0.2, (37, 128)).astype(np.float32)
+    r = rng.uniform(0, 0.2, (53, 128)).astype(np.float32)
+    got = tdistance.pairwise_l1(T(q), T(r)).numpy()
+    want = np.asarray(jdistance.pairwise_l1(jnp.asarray(q), jnp.asarray(r)))
+    assert got.shape == (37, 53)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_solve_warp_batched_matches_jax(weighted):
+    """A batch of bilinear fits over one shared weight vector (the JAX
+    vmap's in_axes (0, 0, None)): coefficients rtol 1e-4, atol 1e-5, as
+    tests/test_torch_match.py::test_solve_warp holds solve_warp."""
+    (src, dst, _, _), _, _ = _pairs(outliers=0)
+    src = np.stack([src[:96], src[96:]])
+    dst = np.stack([dst[:96], dst[96:]])
+    w = (np.arange(96) % 4 != 0).astype(np.float32) if weighted else None
+    got = tsolve.solve_warp_batched(
+        T(src), T(dst), None if w is None else T(w)).numpy()
+    want = np.asarray(jsolve.solve_warp_batched(
+        jnp.asarray(src), jnp.asarray(dst), None if w is None
+        else jnp.asarray(w)))
+    assert got.shape == (2, 8)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

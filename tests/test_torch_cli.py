@@ -68,6 +68,33 @@ def test_build_config_matches_jax(argv):
     assert vars(args_j).items() <= vars(args_t).items()
 
 
+# options whose help differs from the JAX CLI's on purpose: the JAX text
+# names TPU mechanisms or measurements, or the port's option does more
+HELP_OWN = {
+    "timing": "also prints the kernel launches",
+    "blend_dtype": "the JAX text quotes a TPU measurement",
+    "no_seam_auto": "the same words, one in lower case",
+    "seam_band": "the JAX text gives the TPU cost model",
+    "match_method": "'auto' means exact off a TPU",
+    "l2pre_m": "the JAX text gives TPU defaults",
+    "exact_canvas": "the JAX text counts TPU compiles",
+    "sp": "a mesh of --device, not a jax.sharding Mesh",
+    "resume": "the JAX text cites its survey",
+}
+_JAX_HELP = {a.dest: a.help for a in jcli.make_parser()._actions}
+
+
+@pytest.mark.parametrize("dest", sorted(_JAX_HELP))
+def test_help_text_matches_jax(dest):
+    """Every option of the JAX CLI has the port's counterpart, with the
+    JAX package's help text unless ``HELP_OWN`` says why not; no help text
+    says a mode is not ported (all of them are)."""
+    ours = {a.dest: a.help for a in cli.make_parser()._actions}
+    assert "not ported" not in (ours[dest] or ""), ours[dest]
+    if dest not in HELP_OWN:
+        assert ours[dest] == _JAX_HELP[dest]
+
+
 _CLI_NO_JAX = textwrap.dedent("""
     import sys
     from computervisionimagestich2_tpu_torch.cli import main

@@ -3,12 +3,16 @@ own copies of the JAX package's configuration and command-line mapping
 equal the originals field for field.
 """
 import dataclasses
+import importlib
+import inspect
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 
+import computervisionimagestich2_tpu
 from computervisionimagestich2_tpu import cli as jcli
 from computervisionimagestich2_tpu import config as jconfig
 from computervisionimagestich2_tpu_torch import cli, config
@@ -27,6 +31,9 @@ import computervisionimagestich2_tpu_torch.cli
 import computervisionimagestich2_tpu_torch.models.stitcher
 import computervisionimagestich2_tpu_torch.models.streaming
 import computervisionimagestich2_tpu_torch.api.compat
+import computervisionimagestich2_tpu_torch.native.codec
+from computervisionimagestich2_tpu_torch.utils import io
+io.codec()  # builds and loads the native codec, or takes the numpy one
 from computervisionimagestich2_tpu_torch.parallel import (
     batched_stitch_chain, make_mesh, shard_batch, sharded_blend_two_images,
     sharded_composite, sharded_composite_and_blend, sharded_gaussian_blur)
@@ -40,8 +47,9 @@ print("LOADED", bad)
 
 def test_port_imports_nothing_of_the_jax_package():
     """A fresh interpreter imports the port's package, its CLI, both
-    stitchers, the compat API, the batched panoramas and the mesh mode
-    (``parallel``); no module of the JAX package (nor jax) is loaded."""
+    stitchers, the compat API, the native codec (and takes a codec), the
+    batched panoramas and the mesh mode (``parallel``); no module of the
+    JAX package (nor jax) is loaded."""
     proc = subprocess.run([sys.executable, "-c", _IMPORTS], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -111,3 +119,53 @@ def test_jax_config_works_in_the_port():
         check_supported(dataclasses.replace(
             jcfg, blend=dataclasses.replace(jcfg.blend,
                                             blur_impl="fir_fused")))
+
+
+# what the port has no counterpart of, by design: the Pallas kernels (the
+# CUDA kernels of csrc/ replace them) and the TPU-only planners and blur
+# (ROADMAP.md §A, "Not ported" and "Do not port")
+NOT_PORTED_MODULES = ("ops.pallas_detect", "ops.pallas_distance",
+                      "ops.pallas_sift", "ops.pallas_warp", "native.libcodec")
+NOT_PORTED = {"ops.resize.blur_shrink_hwc", "ops.warp.banded_warp_params",
+              "ops.warp.plan_edge_warp"}
+
+
+def _public_api() -> list[str]:
+    """``module.name`` of every public function and class the JAX
+    package's modules define."""
+    out = []
+    pkg = computervisionimagestich2_tpu
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        rel = info.name.split(".", 1)[1]
+        if rel in NOT_PORTED_MODULES:
+            continue
+        mod = importlib.import_module(info.name)
+        out += [f"{rel}.{k}" for k, v in vars(mod).items()
+                if not k.startswith("_")
+                and (inspect.isfunction(v) or inspect.isclass(v))
+                and v.__module__ == info.name
+                and f"{rel}.{k}" not in NOT_PORTED]
+    return sorted(out)
+
+
+def _params(fn) -> list[str]:
+    return [p for p in inspect.signature(fn).parameters if p != "device"]
+
+
+@pytest.mark.parametrize("name", _public_api())
+def test_every_jax_function_has_a_counterpart(name):
+    """Each public function and class of the JAX package has a
+    counterpart of the same name in the port's module of the same path,
+    taking the JAX parameters in the JAX order (the port may add its
+    explicit ``device`` anywhere, and parameters after the JAX ones)."""
+    rel, attr = name.rsplit(".", 1)
+    jax_obj = getattr(importlib.import_module(
+        f"computervisionimagestich2_tpu.{rel}"), attr)
+    ours = getattr(importlib.import_module(
+        f"computervisionimagestich2_tpu_torch.{rel}"), attr, None)
+    assert ours is not None, f"no counterpart of {name}"
+    try:
+        want = _params(jax_obj)
+    except (TypeError, ValueError):  # a signature inspect cannot read
+        return
+    assert _params(ours)[:len(want)] == want, (_params(ours), want)
