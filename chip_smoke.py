@@ -147,7 +147,11 @@ phase with its result and seconds:
    recorded), with no ``match_overflow``, its wall, profile, peak memory
    and B4 and B5 beside their bounds; (e) the command line with
    ``--gain-compensation`` on the frames as 24.9 MB BMPs (phase 8's
-   checks; it must take the native codec), and both codecs timed on them.
+   checks; it must take the native codec), and both codecs timed on them;
+18. the port's benchmark, ``bench_torch.py --cells pano4_512x384 --runs
+   3``, in a fresh interpreter: its JSON line is printed and must say
+   ``correct`` (the chain, the canvas against its CPU run, reprojection
+   parity of the card's edge plan with the CPU's).
 
 In phases 4, 5, 8-11 and 12-17 every launch count is set to 0 just before
 the path runs and read just after; each path must launch each of its
@@ -176,44 +180,15 @@ from pathlib import Path
 
 import numpy as np
 
+from computervisionimagestich2_tpu_torch.tools.probes import (
+    B6_BRANCH, DEVICE_KERNELS, KERNELS, canvas_vs_cpu, check_chain, dev_us,
+    device_events, graph_edges, last_edge_vs_cpu, off_branch, profile_call,
+    record_ordering, u8)
+from computervisionimagestich2_tpu_torch.tools.scenes import (
+    SCRAMBLE, config4, crops, make_scene, scrambled)
+
 ROOT = Path(__file__).resolve().parent
 
-CSRC = "computervisionimagestich2_tpu_torch/csrc/"
-TPU_OPS = "computervisionimagestich2_tpu/ops/"
-# launch counter -> (id, route, source, replaced Pallas call site)
-KERNELS = {
-    "detect_compact": (
-        "B1", "cuda", CSRC + "detect.cu", TPU_OPS + "pallas_detect.py:168"),
-    "sift_orientation_hist": (
-        "B2", "cuda", CSRC + "sift_walks.cu", TPU_OPS + "pallas_sift.py:491"),
-    "sift_descriptors": (
-        "B3", "cuda", CSRC + "sift_walks.cu", TPU_OPS + "pallas_sift.py:356"),
-    "l1_two_nearest_bidir": (
-        "B4", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:209"),
-    "pair_match_counts": (
-        "B5", "cuda", CSRC + "pair_counts.cu",
-        TPU_OPS + "pallas_distance.py:431"),
-    "warp_image": (
-        "B6", "cuda", CSRC + "warp.cu", TPU_OPS + "pallas_warp.py:237"),
-    "warp_image_projective": (
-        "B6", "cuda", CSRC + "warp.cu", TPU_OPS + "pallas_warp.py:237"),
-    "l1_two_nearest": (
-        "B7", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:283"),
-}
-# the device kernels each wrapper launches (substrings of their names)
-DEVICE_KERNELS = {
-    "detect_compact": ("detect_octaves_kernel",),
-    "sift_orientation_hist": ("orientation_hist_kernel",),
-    "sift_descriptors": ("descriptors_kernel",),
-    "l1_two_nearest_bidir": ("l1_bidir_tile_kernel", "l1_bidir_merge_kernel"),
-    "pair_match_counts": ("pair_plan_kernel", "pair_tile_kernel",
-                          "pair_count_kernel"),
-    "warp_image": ("warp_bilinear_kernel",),
-    "warp_image_projective": ("warp_projective_kernel",),
-    "l1_two_nearest": ("l1_one_way_tile_kernel", "l1_one_way_merge_kernel"),
-}
-# B6's launch counter for each warp model; a stitch runs one of the two
-B6_BRANCH = {"bilinear": "warp_image", "projective": "warp_image_projective"}
 # device work a launcher starts beside its kernels, by profiler key: B1's
 # cudaMemsetAsync of the scan's status words. Counted where a wrapper is
 # timed alone (``device_ms``); in the profile of a whole stitch other code's
@@ -223,10 +198,6 @@ BESIDE_KERNELS = {"detect_compact": ("Memset",)}
 OFF_MAIN_PATH = {"l1_two_nearest"}
 CHAIN_OFF_PATH = OFF_MAIN_PATH | {"detect_compact", "pair_match_counts"}
 
-
-def off_branch(model: str) -> set:
-    """B6's counter of the warp model a path does not run."""
-    return {v for k, v in B6_BRANCH.items() if k != model}
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s,
 # which counts a fused multiply-add as two operations, so 33.5 T of the
@@ -241,7 +212,6 @@ PEAK_OPS_PER_S = 33.5e12
 B2_OPS_PER_PIXEL = 22
 B3_OPS_PER_PIXEL = 84
 L1_OPS_PER_PAIR = 2 * 128 + 4  # |q - r| + add per feature, 4 top-2 compares
-SCRAMBLE = [2, 0, 3, 1]  # scene position of each image handed over
 
 
 def emit(phase: str, t0: float, **kv) -> dict:
@@ -249,42 +219,6 @@ def emit(phase: str, t0: float, **kv) -> dict:
            "seconds": round(time.perf_counter() - t0, 3), **kv}
     print(json.dumps(rec), flush=True)
     return rec
-
-
-def make_scene(rng, h: int, w: int, scale: int) -> np.ndarray:
-    """tests/test_integration.py::make_scene at ``scale`` times its feature
-    size: box-smoothed noise (made at 1/scale and upsampled bilinearly)
-    plus solid discs, at the same density per feature area."""
-    import torch
-
-    lh, lw = -(-h // scale), -(-w // scale)
-    img = rng.uniform(60, 200, (lh, lw, 3))
-    for _ in range(3):
-        img = (np.roll(img, 1, 0) + img + np.roll(img, -1, 0)) / 3
-        img = (np.roll(img, 1, 1) + img + np.roll(img, -1, 1)) / 3
-    t = torch.as_tensor(img).permute(2, 0, 1)[None]
-    img = torch.nn.functional.interpolate(
-        t, size=(h, w), mode="bilinear", align_corners=False)[0]
-    img = img.permute(1, 2, 0).numpy().copy()
-    n_blobs = int(25 * lh * lw / (140 * 200))
-    for _ in range(n_blobs):
-        cy, cx = rng.uniform(10, h - 10), rng.uniform(10, w - 10)
-        r = rng.uniform(3, 9) * scale
-        col = rng.uniform(0, 255, 3)
-        y0, y1 = int(max(cy - r, 0)), int(min(cy + r + 1, h))
-        x0, x1 = int(max(cx - r, 0)), int(min(cx + r + 1, w))
-        ys, xs = np.mgrid[y0:y1, x0:x1]
-        m = (ys - cy) ** 2 + (xs - cx) ** 2 < r * r
-        img[y0:y1, x0:x1][m] = col
-    return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def crops(h: int, w: int, step: int, scale: int, seed: int, n: int = 4):
-    """``n`` overlapping [h, w, 3] u8 crops of one deterministic scene."""
-    scene = make_scene(np.random.default_rng(seed), h, w + (n - 1) * step,
-                       scale)
-    return [np.ascontiguousarray(scene[:, i * step: i * step + w])
-            for i in range(n)]
 
 
 def pair_inputs(images, trimmed: bool = True):
@@ -306,10 +240,6 @@ def pair_inputs(images, trimmed: bool = True):
     return feats.desc.contiguous(), feats.valid.contiguous(), pairs
 
 
-def scrambled(images):
-    return [images[k] for k in SCRAMBLE]
-
-
 def cuda_ms(fn, reps: int = 10) -> float:
     """Mean time of one call between CUDA events around ``reps`` calls in
     a row, after one warm-up: the device time of the call plus whatever
@@ -326,17 +256,6 @@ def cuda_ms(fn, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _dev_us(e) -> float:
-    """Device time (us) of one ``torch.profiler`` key_averages entry."""
-    return (getattr(e, "self_device_time_total", 0)
-            or getattr(e, "self_cuda_time_total", 0))
-
-
-def _device_events(prof) -> list:
-    return [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
 
 
 def device_ms(fn, name: str, reps: int = 10, keys=None,
@@ -363,12 +282,12 @@ def device_ms(fn, name: str, reps: int = 10, keys=None,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in _device_events(prof)
+        hits = [e for e in device_events(prof)
                 if any(k in e.key for k in keys)]
         count = sum(e.count for e in hits)
         if (count == launches * reps if launches
                 else count >= reps and count % reps == 0):
-            return sum(_dev_us(e) for e in hits) / 1e3 / reps
+            return sum(dev_us(e) for e in hits) / 1e3 / reps
     return None
 
 
@@ -451,24 +370,6 @@ class Recorder:
             setattr(mod, attr, self._orig[name])
 
 
-def record_ordering(stitcher) -> dict:
-    """Keep the adjacency and start image that graph discovery finds."""
-    seen = {}
-    graph, middle = stitcher._match_graph, stitcher._middle_index
-
-    def match_graph(*args):
-        adj = graph(*args)
-        seen["adj"] = [row[:] for row in adj]  # bfs_edge_seq consumes adj
-        return adj
-
-    def middle_index(adj):
-        seen["start"] = middle(adj)
-        return seen["start"]
-
-    stitcher._match_graph, stitcher._middle_index = match_graph, middle_index
-    return seen
-
-
 @contextlib.contextmanager
 def telemetry():
     """While open, record what a stitch reports: the SIFT drop counters
@@ -536,23 +437,6 @@ def telemetry():
     finally:
         (stm.sift_extract_stats, stm.plan_edges, obs.warn, stm.blend_edge,
          stm.equalize_and_mix) = orig
-
-
-def graph_edges(seen: dict) -> list:
-    """The undirected edges of the adjacency graph discovery found."""
-    adj = seen["adj"]
-    return [list(e) for e in sorted({tuple(sorted((i, j)))
-                                     for i, row in enumerate(adj)
-                                     for j, a in enumerate(row) if a})]
-
-
-def check_chain(seen: dict) -> list:
-    """Graph discovery on the scrambled crops must find the scene's chain:
-    three edges, each between crops that neighbour in the scene."""
-    edges = graph_edges(seen)
-    assert len(edges) == 3, edges
-    assert all(abs(SCRAMBLE[i] - SCRAMBLE[j]) == 1 for i, j in edges), edges
-    return edges
 
 
 def near_ratio(desc, valid, pairs, ratio: float) -> list:
@@ -1164,38 +1048,6 @@ def profile_run(stitcher, images) -> dict:
                         OFF_MAIN_PATH | off_branch(stitcher.config.warp_model))
 
 
-def profile_call(fn, off) -> dict:
-    """One warm call of ``fn`` (which synchronises the card) under
-    ``torch.profiler``: device time and launches per kernel of the port
-    (by ``DEVICE_KERNELS``; every one not in ``off`` must have run), all
-    device kernels and the host-to-device copies among them, the device's
-    busy time (kernels and copies) against the wall."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t
-    dev = _device_events(prof)
-    busy_ms = sum(_dev_us(e) for e in dev) / 1e3
-    per = {}
-    for name, subs in DEVICE_KERNELS.items():
-        hits = [e for e in dev if any(s in e.key for s in subs)]
-        per[name] = {"ms": sum(_dev_us(e) for e in hits) / 1e3,
-                     "device_launches": sum(e.count for e in hits)}
-    out = {"wall_s": wall, "device_busy_ms": busy_ms,
-           "idle_share": 1.0 - busy_ms / 1e3 / wall if busy_ms else None,
-           "device_events": sum(e.count for e in dev),
-           "memcpy_htod_events": sum(e.count for e in dev if "HtoD" in e.key),
-           "top": sorted(((e.key[:80], _dev_us(e) / 1e3, e.count)
-                          for e in dev), key=lambda x: -x[1])[:12],
-           "kernels": per}
-    assert busy_ms > 0 and all(per[n]["ms"] > 0 for n in per
-                               if n not in off), out
-    return out
-
-
 def check_matcher(feats_a, feats_b) -> dict:
     """Phase 6: kernel B7 through the matcher API. Returns its kernels
     row (launches = the l1_two_nearest launches of match_features +
@@ -1255,21 +1107,6 @@ def check_matcher(feats_a, feats_b) -> dict:
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     print(json.dumps({"kernel_check": row}), flush=True)
     return row
-
-
-def canvas_vs_cpu(out, out_cpu) -> float:
-    """Shape within +-3 px and MAD <= 3 u8 levels over the common canvas
-    (the end-to-end gate of tests/test_torch_stitch.py)."""
-    assert abs(out.shape[0] - out_cpu.shape[0]) <= 3, (out.shape,
-                                                       out_cpu.shape)
-    assert abs(out.shape[1] - out_cpu.shape[1]) <= 3, (out.shape,
-                                                       out_cpu.shape)
-    h = min(out.shape[0], out_cpu.shape[0])
-    w = min(out.shape[1], out_cpu.shape[1])
-    mad = float(np.abs(out[:h, :w].astype(np.int64)
-                       - out_cpu[:h, :w].astype(np.int64)).mean())
-    assert mad <= 3.0, mad
-    return mad
 
 
 def run(stitcher, images, **kw):
@@ -1562,9 +1399,9 @@ def blend_cost(args: tuple) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        dev = _device_events(prof)
+        dev = device_events(prof)
         out[impl] = {"ms": ms, "device_launches": sum(e.count for e in dev),
-                     "device_ms": sum(_dev_us(e) for e in dev) / 1e3}
+                     "device_ms": sum(dev_us(e) for e in dev) / 1e3}
     return out
 
 
@@ -1671,11 +1508,6 @@ def stream_phase(config, h: int, w: int, n_frames: int, scale: int,
 
 
 BATCH_SEEDS = (0, 3)  # the batch's two panoramas: "Input/" and "Input2/"
-
-
-def u8(t) -> np.ndarray:
-    """A u8-valued float canvas (a tensor on any device) as u8 numpy."""
-    return t.cpu().numpy().astype(np.uint8)
 
 
 def batched_phase(h: int, w: int, step: int, scale: int,
@@ -2268,17 +2100,6 @@ UHD_STEP = 2240  # the 58% step of phase 7's crops(1440, 1080, 630, ...)
 UHD_SCALE = 6  # phase 7's feature scale: the same keypoints per pixel
 
 
-def config4():
-    """BASELINE config 4 as scripts/bench_configs.py:109-112 defines it:
-    ``DEFAULT_CONFIG`` with ``blend.gain_compensation=True``."""
-    import dataclasses
-
-    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
-
-    return dataclasses.replace(DEFAULT_CONFIG, blend=dataclasses.replace(
-        DEFAULT_CONFIG.blend, gain_compensation=True))
-
-
 def timed_kernel(name: str, a: tuple, kern, plain=None, reps: int = 3,
                  **extra) -> dict:
     """One call ``a`` of kernel ``name``: device time (``kernel_ms``), the
@@ -2382,37 +2203,6 @@ def uhd_warm(st, images, edges: list, n_octaves: int) -> dict:
                  "peak_mem_gib": peak / 2 ** 30,
                  "held_before_gib": base / 2 ** 30,
                  "profile": profile_run(st, images)}
-
-
-def last_edge_vs_cpu(st, images) -> dict:
-    """Phase 17c: the last edge's composite + blend (warp, gain, blend,
-    u8 truncation: ``stitcher._composite_and_blend``) of a warm run on the
-    card, again on the CPU (the plain versions) on the same arguments:
-    canvas within +-3 px and MAD <= 3 u8 levels (``canvas_vs_cpu``)."""
-    import torch
-
-    from computervisionimagestich2_tpu_torch.models import stitcher as stm
-
-    last, fn = {}, stm._composite_and_blend
-
-    def rec(*a):
-        out = fn(*a)
-        last.update(args=a, out=out)
-        return out
-
-    stm._composite_and_blend = rec
-    try:
-        st.stitch(images)
-    finally:
-        stm._composite_and_blend = fn
-    args = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
-                 for x in last["args"])
-    t = time.perf_counter()
-    out_cpu = fn(*args)
-    secs = time.perf_counter() - t
-    card = u8(last["out"])
-    return {"edge_canvas": list(card.shape), "comp_hw": list(args[5]),
-            "cpu_s": secs, "mad_vs_cpu": canvas_vs_cpu(card, u8(out_cpu))}
 
 
 def sift_counters(images, cfg) -> tuple[list, list]:
@@ -2597,7 +2387,9 @@ def config4_phase(images, kernels: list) -> None:
     emit("config4_4k_warm", t, warm_equals_cold=bool(np.array_equal(
         out, out_4k)), **warm)
     t = time.perf_counter()
-    emit("config4_4k_last_edge_vs_cpu", t, **last_edge_vs_cpu(st, images))
+    rep = last_edge_vs_cpu(st, images)
+    assert max(rep["shape_diff"]) <= 3 and rep["mad_vs_cpu"] <= 3.0, rep
+    emit("config4_4k_last_edge_vs_cpu", t, **rep)
     del st
     t = time.perf_counter()
     raised = raised_caps_phase(images, cfg4, tel["match_dropped"])
@@ -2616,6 +2408,27 @@ def config4_phase(images, kernels: list) -> None:
             **uhd.get(name, {})}
         if name in ("l1_two_nearest_bidir", "pair_match_counts"):
             k["at_4k"]["raised_caps"] = raised[name]
+
+
+def bench_phase() -> dict:
+    """Phase 18: ``bench_torch.py`` on its headline cell with three warm
+    runs, in a fresh interpreter; its line is printed and must say
+    ``correct`` on the card."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "bench_torch.py"), "--cells",
+         "pano4_512x384", "--runs", "3"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-3000:])
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(line), flush=True)
+    assert line["cell"] == "pano4_512x384", line
+    assert line["device"] == "cuda" and line["correct"] is True, line
+    return {"correct": line["correct"], "panorama_ms": line["panorama_ms"],
+            "cold_ms": line["cold_ms"],
+            "reprojection_parity_px": line["checks"][
+                "reprojection_parity_px"]["value"],
+            "mad_vs_cpu": line["checks"]["canvas_vs_cpu"]["mad"],
+            "bench_seconds": line["elapsed_s"]}
 
 
 def main() -> int:
@@ -2918,6 +2731,10 @@ def main() -> int:
     # compensation, every canvas above both blend gates
     config4_phase(scrambled(crops(*UHD_HW, UHD_STEP, UHD_SCALE, seed=4)),
                   kernels)
+
+    # -- 18. the bench on its headline cell
+    t = time.perf_counter()
+    emit("bench_pano4_512x384", t, **bench_phase())
 
     assert len(kernels) == len(KERNELS), [k["name"] for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)

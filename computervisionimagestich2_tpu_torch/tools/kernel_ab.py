@@ -132,7 +132,8 @@ def ptxas_report(tree: Path) -> dict:
 
 
 def record_inputs(path: Path) -> dict:
-    """One cold default-path stitch of this tree on chip_smoke's crops,
+    """One cold default-path stitch of this tree on the crops of
+    ``tools/scenes.py`` (as ``chip_smoke.py`` phase 3 stitches them),
     keeping the arguments of every B1-B6 call (as CPU tensors), B7's in
     ``match_features`` of two neighbouring crops, B5's arguments at ten
     crops and at 1440x1080, and B6's in a stitch at 1440x1080."""
@@ -146,6 +147,7 @@ def record_inputs(path: Path) -> dict:
     from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
     from computervisionimagestich2_tpu_torch.ops import (detect, distance,
                                                          sift_walks)
+    from computervisionimagestich2_tpu_torch.tools import scenes
 
     def to_cpu(a):
         if isinstance(a, torch.Tensor):
@@ -165,21 +167,21 @@ def record_inputs(path: Path) -> dict:
             calls[_name].append(tuple(to_cpu(a) for a in args))
             return _fn(*args, **kw)
         setattr(mods[mod], attr, wrapped)
-    images = chip_smoke.scrambled(chip_smoke.crops(512, 384, 224, 2, 0))
+    images = scenes.scrambled(scenes.crops(512, 384, 224, 2, 0))
     try:
         st = Stitcher(DEFAULT_CONFIG, device="cuda")
         st.stitch(images)
         assert not calls["l1_two_nearest"]  # B7 is off the stitch path
         feats = st._matching_feats()
-        a, b = (chip_smoke.SCRAMBLE.index(k) for k in (0, 1))
+        a, b = (scenes.SCRAMBLE.index(k) for k in (0, 1))
         matcher.match_features(Features(*(x[a] for x in feats)),
                                Features(*(x[b] for x in feats)))
     finally:
         for name, (mod, attr) in SITES.items():
             setattr(mods[mod], attr, orig[name])
-    big = chip_smoke.crops(1440, 1080, 630, 6, 1)
+    big = scenes.crops(1440, 1080, 630, 6, 1)
     for label, crops in (
-            ("n10", chip_smoke.crops(512, 384, 224, 2, 0, n=10)),
+            ("n10", scenes.crops(512, 384, 224, 2, 0, n=10)),
             ("1440x1080", big)):
         calls[f"pair_match_counts@{label}"] = [(
             *(a.cpu() for a in chip_smoke.pair_inputs(crops)),
@@ -193,7 +195,7 @@ def record_inputs(path: Path) -> dict:
     compose.warp_image = warp_rec
     try:
         Stitcher(DEFAULT_CONFIG, device="cuda").stitch(
-            chip_smoke.scrambled(big))
+            scenes.scrambled(big))
     finally:
         compose.warp_image = warp_fn
     counts = {name: len(c) for name, c in calls.items()}
