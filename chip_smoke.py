@@ -16,7 +16,9 @@ phase with its result and seconds:
    which ``utils/io.py`` must take on this machine;
 3. a cold default-path stitch of four synthetic 512x384 portrait crops
    handed over in scrambled order; graph discovery must find the scene's
-   chain. It records the inputs of every kernel call, then every kernel
+   chain. It records the inputs of every kernel call (the programs run
+   eagerly while a ``Recorder`` is open: a replayed CUDA graph calls no
+   wrapper, and its capture allocates in the graph's pool), then every kernel
    is held against its plain PyTorch version on the first call's inputs,
    on the card, with the time of each, of PyTorch's own call for the same
    function where one exists (``library_ms``, timed here and used nowhere
@@ -27,13 +29,21 @@ phase with its result and seconds:
    B4 on every pair; B1, B2 and B6 are also timed on a call with nothing
    to do (what a launch alone costs), and B6 on the panorama's last and
    largest canvas, with the coefficients by value and as a tensor;
-4. warm default-path stitches of the same images: each kernel's launch
-   count in one run (all six of the path must have launched, B1 once per
-   image, B4 once per edge), the median time of three runs with the stage
-   times, agreement with the CPU run of the port (plain versions), and one
-   ``torch.profiler`` pass of a warm run: device time per kernel and per
-   panorama, all launches and host-to-device copies, the device's busy and
-   idle share; B6 per panorama beside the floor its launches set;
+4. the bench's headline cell on the same images (``tools/bench.py::
+   run_panorama``, three warm runs; its JSON line is printed and must say
+   ``correct``: the chain, the plan's reprojection parity with the CPU's,
+   every timed run equal to its cold one, the canvas against the CPU
+   run, and each kernel's launch counter in the traced run equal to the
+   device kernels its trace holds, a launch's one to three), as users
+   get it, the features program and the edge plan replayed
+   as CUDA graphs (``core/programs.py``); the warm panorama equal to
+   phase 3's eager one bit for bit; each kernel's launch count in one run
+   (all six of the path must have launched, B1 once per image, B4 once
+   per edge; a replay counts its graph's launches) and, from the cell's
+   ``torch.profiler`` pass, device time per kernel and per panorama (a
+   replayed graph's kernels are device events of the trace), all
+   launches and host-to-device copies, the device's busy and idle share;
+   B6 per panorama beside the floor its launches set;
 5. the chain slice (``SLICE_CONFIG``) on the crops in scene order: one cold
    and one warm run, the CPU-canvas check, and no launch of the fused
    detect (B1) or the pair counts (B5);
@@ -42,8 +52,11 @@ phase with its result and seconds:
    direction of ``match_features_bidir``, and the kernel against its plain
    version on a reference mask with a hole inside the live prefix;
 7. the default path on four scrambled 1440x1080 images (the north-star
-   size): canvas, discovered edges and start, SIFT and match telemetry,
-   cold and warm times, stage times and peak device memory; B1 exactly
+   size): canvas, discovered edges and start, SIFT and match telemetry
+   from an eager cold run, then the bench's north-star cell
+   (``run_panorama`` with its last edge against the CPU, three warm
+   runs, its line printed) with warm walls, stage times and peak device
+   memory, its panorama equal to the eager one; B1 exactly
    against plain on that size's four octave shapes and B6 on its 1489 x
    2948 canvas beside its bound; B6's cases (phase 7a): both warp models,
    exact against plain and by value equal to the tensor call, on the last
@@ -73,7 +86,8 @@ phase with its result and seconds:
 11. ``StreamingStitcher`` (BASELINE config 5): 10 frames at 1280x720 and 8
    at 1920x1080 panning by 1/8 of the frame width, per-frame ``push()``
    latency (median and worst after the first two frames, split into sift,
-   register and composite + blend), keyframe switches, the canvas (on the
+   register and composite + blend; ``sift_extract`` replays its CUDA
+   graph from the first push on), keyframe switches, the canvas (on the
    bucket grid, at most 4096 wide) and the launches per frame (B5 never);
    at 720p the canvas of the first two frames against the CPU run of the
    port;
@@ -130,7 +144,7 @@ phase with its result and seconds:
 17. BASELINE config 4 (``config4``: ``DEFAULT_CONFIG`` with gain
    compensation) on four scrambled 3840x2160 crops of one scene (58%
    step, phase 7's feature scale): (a) a cold stitch recording every
-   kernel call: the chain, per image the four SIFT drop counters, per edge
+   kernel call (eagerly): the chain, per image the four SIFT drop counters, per edge
    the matches dropped and ``match_overflow`` (recorded, not failed at
    these capacities), the canvas, the blend gates each edge engaged, the
    stage times, the largest bin the enhance tail equalizes; (b) every
@@ -140,7 +154,8 @@ phase with its result and seconds:
    at full capacity in chunks, B6 on the last canvas), with device time,
    bound and share; warm runs: launches (B1 once per image, B2 and B3 once
    per level batch of every octave, B4 and B6 once per edge, B5 once),
-   median of three, peak memory, a profile; (c) the last edge's composite
+   median of three, peak memory, a profile, the panorama of the graphs
+   equal to the eager cold one; (c) the last edge's composite
    + blend again on the CPU on the same arguments; (d) the stitch at the
    smallest ``sift.max_keypoints_per_octave``, ``sift.max_keypoints`` and
    ``match.max_matches`` that zero the counters (what no field lowers is
@@ -148,10 +163,28 @@ phase with its result and seconds:
    and B4 and B5 beside their bounds; (e) the command line with
    ``--gain-compensation`` on the frames as 24.9 MB BMPs (phase 8's
    checks; it must take the native codec), and both codecs timed on them;
-18. the port's benchmark, ``bench_torch.py --cells pano4_512x384 --runs
-   3``, in a fresh interpreter: its JSON line is printed and must say
-   ``correct`` (the chain, the canvas against its CPU run, reprojection
-   parity of the card's edge plan with the CPU's).
+18. the programs as CUDA graphs against eager (``graphs_phase``) on the
+   scenes of the bench's three panorama cells (4 x 512x384 and 4 x
+   1440x1080 under ``DEFAULT_CONFIG``, 4 x 3840x2160 under ``config4``):
+   a Stitcher under ``disable_graphs()`` and one with every graph dropped
+   first, each a cold, a counted and two timed warm stitches and a
+   profile; the graph run's panorama, each frame's features, projection
+   and stats, the [E, 23] plan and the launch counts equal the eager
+   run's bit for bit; the cold run captures two graphs (the features
+   program, into which ``sift_extract_stats`` is inlined, and the plan),
+   a second stitch none; the profile shows one graph launch per frame and
+   one for the plan and no host-to-device copy inside a replay; the
+   reversed edge sequence replays the plan's graph with the eager plan's
+   rows (the plan's key holds no edge); in each mode's profile every
+   launch counter equals the device kernels the trace holds. Each mode's
+   cold wall (with the captures' host seconds), warm walls, stage times,
+   peak memory allocated and reserved and the private pools (reserved
+   and allocated; more with graphs than eager, where every graph was
+   dropped and only what earlier captures left stays), device events,
+   host-to-device copies and idle share are printed;
+19. the port's benchmark, ``bench_torch.py --cells pano4_512x384 --runs
+   1``, in a fresh interpreter: exit code 0, one JSON line on stdout,
+   printed, that says ``correct`` and shows the cold run's 2 captures.
 
 In phases 4, 5, 8-11 and 12-17 every launch count is set to 0 just before
 the path runs and read just after; each path must launch each of its
@@ -171,6 +204,7 @@ non-zero; without a CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -182,8 +216,8 @@ import numpy as np
 
 from computervisionimagestich2_tpu_torch.tools.probes import (
     B6_BRANCH, DEVICE_KERNELS, KERNELS, canvas_vs_cpu, check_chain, dev_us,
-    device_events, graph_edges, last_edge_vs_cpu, off_branch, profile_call,
-    record_ordering, u8)
+    device_events, graph_edges, last_edge_vs_cpu, launches_vs_trace,
+    off_branch, profile_call, record_ordering, u8)
 from computervisionimagestich2_tpu_torch.tools.scenes import (
     SCRAMBLE, config4, crops, make_scene, scrambled)
 
@@ -331,7 +365,9 @@ class Recorder:
     (``calls``) and of the first (``args``). ``names``: the wrappers to
     record (by default those of the default stitch path: all but B7). The
     matchers' strategy keywords pass through unrecorded: exact L1, the
-    only one the kernels run, is the wrappers' default."""
+    only one the kernels run, is the wrappers' default. While open, the
+    programs run eagerly (``disable_graphs``): a replayed graph calls no
+    wrapper."""
 
     def __init__(self, names=None):
         from computervisionimagestich2_tpu_torch.models import compose
@@ -354,6 +390,12 @@ class Recorder:
         self._orig = {}
 
     def __enter__(self):
+        from computervisionimagestich2_tpu_torch.core import programs
+
+        # recorded inputs must be tensors of an eager run: a graph's
+        # capture allocates in its pool, which every replay overwrites
+        self._eager = programs.disable_graphs()
+        self._eager.__enter__()
         for name, (mod, attr) in self.sites.items():
             fn = getattr(mod, attr)
             self._orig[name] = fn
@@ -368,6 +410,7 @@ class Recorder:
     def __exit__(self, *exc):
         for name, (mod, attr) in self.sites.items():
             setattr(mod, attr, self._orig[name])
+        self._eager.__exit__(*exc)
 
 
 @contextlib.contextmanager
@@ -388,18 +431,20 @@ def telemetry():
     from computervisionimagestich2_tpu_torch.ops.color import rgb_to_ycbcr
     from computervisionimagestich2_tpu_torch.utils import obs
 
+    from computervisionimagestich2_tpu_torch.parallel import batched
+
     tel = {"sift_dropped": [], "sift_live": [], "match_dropped": None,
            "warnings": [], "blends": [], "last_blend": None,
            "equalize": None}
-    orig = (stm.sift_extract_stats, stm.plan_edges, obs.warn,
+    orig = (batched._project_and_extract_one, stm.plan_edges, obs.warn,
             stm.blend_edge, stm.equalize_and_mix)
-    sift, plan, warn, blend, equalize = orig
+    features, plan, warn, blend, equalize = orig
 
-    def sift_rec(*a):
-        f, s = sift(*a)
+    def features_rec(*a):  # the per-image features program
+        f, p, s = features(*a)
         tel["sift_dropped"].append(s.tolist())
         tel["sift_live"].append(int(f.valid.sum()) + int(s[3]))
-        return f, s
+        return f, p, s
 
     def plan_rec(*a):
         p = plan(*a)
@@ -429,14 +474,15 @@ def telemetry():
                            "largest_bin_below_2_24": int(hist.max()) < 2 ** 24}
         return equalize(result, *a)
 
-    (stm.sift_extract_stats, stm.plan_edges, obs.warn, stm.blend_edge,
-     stm.equalize_and_mix) = (sift_rec, plan_rec, warn_rec, blend_rec,
-                              equalize_rec)
+    (batched._project_and_extract_one, stm.plan_edges, obs.warn,
+     stm.blend_edge, stm.equalize_and_mix) = (features_rec, plan_rec,
+                                              warn_rec, blend_rec,
+                                              equalize_rec)
     try:
         yield tel
     finally:
-        (stm.sift_extract_stats, stm.plan_edges, obs.warn, stm.blend_edge,
-         stm.equalize_and_mix) = orig
+        (batched._project_and_extract_one, stm.plan_edges, obs.warn,
+         stm.blend_edge, stm.equalize_and_mix) = orig
 
 
 def near_ratio(desc, valid, pairs, ratio: float) -> list:
@@ -2209,9 +2255,11 @@ def sift_counters(images, cfg) -> tuple[list, list]:
     """The SIFT of ``images`` alone (``Stitcher.prepare``) under ``cfg``:
     per image the four drop counters and the live keypoints before the
     final capacity (``telemetry``)."""
+    from computervisionimagestich2_tpu_torch.core import programs
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
 
-    with telemetry() as tel:
+    # a probe of one capacity: eager, a graph of each would be kept
+    with programs.disable_graphs(), telemetry() as tel:
         stm.Stitcher(cfg, device="cuda").prepare(images)
     return tel["sift_dropped"], tel["sift_live"]
 
@@ -2231,6 +2279,7 @@ def smallest_caps(images, cfg, match_dropped: list) -> tuple:
     floor and a report of the passes."""
     import dataclasses
 
+    from computervisionimagestich2_tpu_torch.core import programs
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
 
     R = dataclasses.replace
@@ -2265,7 +2314,7 @@ def smallest_caps(images, cfg, match_dropped: list) -> tuple:
     raised = R(cfg, sift=R(cfg.sift, max_keypoints_per_octave=octave,
                            max_keypoints=final))
     if raised.sift != cfg.sift:
-        with telemetry() as tel:
+        with programs.disable_graphs(), telemetry() as tel:
             stm.Stitcher(raised, device="cuda").stitch(images)
         match_dropped = tel["match_dropped"]
     if any(match_dropped):
@@ -2359,8 +2408,13 @@ def config4_phase(images, kernels: list) -> None:
     command line with ``--gain-compensation`` and the BMP codecs
     (``cli_phase``, ``codec_phase``). Adds each kernel's 4K launches,
     device time and calls to its kernels row (``at_4k``)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.core import programs
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
 
+    programs.clear_graphs()  # the earlier phases' graphs hold their memory
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     cfg4 = config4()
     st = stm.Stitcher(cfg4, device="cuda")
@@ -2384,8 +2438,9 @@ def config4_phase(images, kernels: list) -> None:
     emit("config4_4k_kernels_vs_plain", t, **uhd)
     t = time.perf_counter()
     out, warm = uhd_warm(st, images, edges, n_octaves)
-    emit("config4_4k_warm", t, warm_equals_cold=bool(np.array_equal(
-        out, out_4k)), **warm)
+    # the cold run was eager (recorded), the warm ones replay the graphs
+    assert np.array_equal(out, out_4k), "graph run != eager run at 4K"
+    emit("config4_4k_warm", t, warm_equals_cold=True, **warm)
     t = time.perf_counter()
     rep = last_edge_vs_cpu(st, images)
     assert max(rep["shape_diff"]) <= 3 and rep["mad_vs_cpu"] <= 3.0, rep
@@ -2410,25 +2465,184 @@ def config4_phase(images, kernels: list) -> None:
             k["at_4k"]["raised_caps"] = raised[name]
 
 
+def bench_cell(name: str, **change) -> tuple:
+    """The bench's panorama cell ``name`` (``tools/bench.py::
+    run_panorama``: cold stitch, plan parity, three timed warm runs, the
+    CPU check, one profile; ``change`` replaces fields of the cell) on the
+    card: its line is printed and must say ``correct``. Returns (the
+    stitcher, the last timed panorama, the line)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.tools.bench import (
+        CELLS, run_panorama)
+
+    keep = {}
+    cell = dataclasses.replace(CELLS[name], **change)
+    line = {"cell": name, **run_panorama(cell, torch.device("cuda"), 3, 0,
+                                         keep)}
+    print(json.dumps(line), flush=True)
+    assert line["correct"], line["checks"]
+    return keep["stitcher"], keep["out"], line
+
+
+PROFILE_KEYS = ("wall_s", "device_busy_ms", "idle_share", "device_events",
+                "memcpy_htod_events", "graph_launches", "graph_device_events",
+                "memcpy_htod_in_replays")
+
+
+@contextlib.contextmanager
+def program_outputs():
+    """While open, keep what the stitcher's programs return: each frame's
+    (Features, projection, stats) from the features program, and the
+    plan's arguments and [E, 23] rows."""
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+    from computervisionimagestich2_tpu_torch.parallel import batched
+
+    got = {"features": []}
+    features, plan = batched._project_and_extract_one, stm.plan_edges
+
+    def features_rec(*a):
+        out = features(*a)
+        got["features"].append(out)
+        return out
+
+    def plan_rec(*a):
+        got["plan_args"], got["plan"] = a, plan(*a)
+        return got["plan"]
+
+    batched._project_and_extract_one, stm.plan_edges = features_rec, plan_rec
+    try:
+        yield got
+    finally:
+        batched._project_and_extract_one, stm.plan_edges = features, plan
+
+
+def program_mode(images, cfg, eager: bool) -> tuple:
+    """One mode of phase 18: a Stitcher's cold stitch, a warm one with its
+    launch counts and program outputs (``program_outputs``), two more
+    timed, and one profiled; eager under ``disable_graphs()``, else with
+    every program's graphs dropped first, so the cold run captures.
+    Returns (report, warm panorama, program outputs, launches)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    with (programs.disable_graphs() if eager else contextlib.nullcontext()):
+        programs.clear_graphs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        st = stm.Stitcher(cfg, device="cuda")
+        c0 = programs.capture_stats()
+        out_cold, cold_s = run(st, images)
+        c1 = programs.capture_stats()
+        with program_outputs() as got:
+            out, t1, launches = counted_run(st, images)
+        c2 = programs.capture_stats()
+        walls = [t1] + [run(st, images)[1] for _ in range(2)]
+        stages = dict(st.stage_times)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        memory = {"peak_reserved_gib": torch.cuda.max_memory_reserved()
+                  / 2 ** 30, **programs.graph_memory("cuda")}
+        prof = profile_run(st, images)
+    assert np.array_equal(out, out_cold), "warm != cold"
+    wrong = launches_vs_trace(prof["kernels"])
+    assert not wrong, ("launch counters != the trace", wrong)
+    rep = {"cold_s": cold_s, "captures": c1["captures"] - c0["captures"],
+           "capture_s": c1["capture_s"] - c0["capture_s"],
+           "warm_captures": c2["captures"] - c1["captures"],
+           "warm_s": walls, "warm_median_s": statistics.median(walls),
+           "stage_s": stages, "launches": launches,
+           "peak_mem_gib": peak / 2 ** 30, "held_before_gib": held / 2 ** 30,
+           "memory": memory,
+           "launches_vs_trace": {n: [k["counted_launches"],
+                                     k["device_launches"]]
+                                 for n, k in prof["kernels"].items()},
+           "profile": {k: prof[k] for k in PROFILE_KEYS}}
+    return rep, out, got, launches
+
+
 def bench_phase() -> dict:
-    """Phase 18: ``bench_torch.py`` on its headline cell with three warm
-    runs, in a fresh interpreter; its line is printed and must say
-    ``correct`` on the card."""
+    """Phase 19: ``bench_torch.py`` on its headline cell with one warm
+    run, in a fresh interpreter (its ``main``, the kernels' build step,
+    stdout holding only the JSON line, the exit code); its line is printed
+    and must say ``correct`` on the card."""
     proc = subprocess.run(
         [sys.executable, str(ROOT / "bench_torch.py"), "--cells",
-         "pano4_512x384", "--runs", "3"], cwd=ROOT, capture_output=True,
+         "pano4_512x384", "--runs", "1"], cwd=ROOT, capture_output=True,
         text=True, timeout=600)
     assert proc.returncode == 0, (proc.returncode, proc.stderr[-3000:])
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    line = json.loads(lines[0])
     print(json.dumps(line), flush=True)
     assert line["cell"] == "pano4_512x384", line
     assert line["device"] == "cuda" and line["correct"] is True, line
+    assert line["setup"]["graphs"]["captures"] == 2, line["setup"]
     return {"correct": line["correct"], "panorama_ms": line["panorama_ms"],
-            "cold_ms": line["cold_ms"],
+            "cold_ms": line["cold_ms"], "graphs": line["setup"]["graphs"],
             "reprojection_parity_px": line["checks"][
                 "reprojection_parity_px"]["value"],
             "mad_vs_cpu": line["checks"]["canvas_vs_cpu"]["mad"],
             "bench_seconds": line["elapsed_s"]}
+
+
+def graphs_phase(images, cfg) -> dict:
+    """Phase 18 on one scene: the stitch with its programs eager
+    (``disable_graphs``), then as users get it, the features program and
+    the plan as CUDA graphs (``program_mode``). The graph run's panorama,
+    each frame's features, projection and stats and the [E, 23] plan
+    equal the eager run's bit for bit, and so do the launch counts; the
+    cold run captures the two programs, a second stitch nothing; every
+    frame and the plan replay a graph, and no host-to-device copy runs
+    inside a replay. Then another edge sequence of the same length (each
+    edge reversed) replays the plan's graph, with the eager plan's rows."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.models import registration
+
+    eager, out_e, got_e, launches_e = program_mode(images, cfg, True)
+    graph, out_g, got_g, launches_g = program_mode(images, cfg, False)
+    assert np.array_equal(out_e, out_g), "graph panorama != eager"
+    assert launches_e == launches_g, (launches_e, launches_g)
+    assert len(got_e["features"]) == len(got_g["features"]) == len(images)
+    for fe, fg in zip(got_e["features"], got_g["features"]):
+        (feats_e, proj_e, stats_e), (feats_g, proj_g, stats_g) = fe, fg
+        for a, b in zip((*feats_e, proj_e, stats_e),
+                        (*feats_g, proj_g, stats_g)):
+            assert torch.equal(a, b), "graph features != eager"
+    assert np.array_equal(got_e["plan"], got_g["plan"]), "graph plan != eager"
+    assert graph["captures"] == 2 and graph["warm_captures"] == 0, graph
+    assert eager["captures"] == 0, eager
+    # with every graph dropped, the private pools still hold what a tensor
+    # made in an earlier capture keeps; the graphs' own pools come on top
+    assert (graph["memory"]["graph_pools_reserved_gib"]
+            > eager["memory"]["graph_pools_reserved_gib"]), (graph["memory"],
+                                                             eager["memory"])
+    prof = graph["profile"]
+    assert prof["graph_launches"] == len(images) + 1, prof
+    assert prof["memcpy_htod_in_replays"] == 0, prof
+
+    feats, edges, img_hw, start_hw, pcfg = got_g["plan_args"]
+    other = [(dst, src, pre) for src, dst, pre in edges]
+    n0 = registration.plan_rows.captures
+    rows = registration.plan_edges(feats, other, img_hw, start_hw, pcfg)
+    with programs.disable_graphs():
+        ref = registration.plan_edges(feats, other, img_hw, start_hw, pcfg)
+    assert registration.plan_rows.captures == n0, "the plan key held edges"
+    assert np.array_equal(rows, ref, equal_nan=True)
+    assert not np.array_equal(rows, got_g["plan"], equal_nan=True)
+    return {"edges": [list(e) for e in edges],
+            "other_edges_replayed": [list(e) for e in other],
+            "equal": {"panorama": True, "features": True, "plan": True,
+                      "launches": True},
+            "canvas": list(out_g.shape), "graphs": graph, "eager": eager,
+            "warm_median_ratio": (graph["warm_median_s"]
+                                  / eager["warm_median_s"])}
 
 
 def main() -> int:
@@ -2481,35 +2695,31 @@ def main() -> int:
     del rec
     emit("kernels_vs_plain", t, checked=[k["name"] for k in kernels])
 
-    # -- 4. warm default path: launch counts of one run, median of three
+    # -- 4. warm default path: the bench's headline cell (its line
+    # printed), the launch counts of one run, graph against phase 3's
+    # eager cold run
     t = time.perf_counter()
-    out, t1, launches = counted_run(st, images)
-    stages = dict(st.stage_times)
-    warm = [t1] + [run(st, images)[1] for _ in range(2)]
+    st, out, line = bench_cell("pano4_512x384")
+    launches, prof = line["launches"], line["profile"]
     check_launches(launches, b4=len(edges))
     assert launches["detect_compact"] == len(images), launches
-    assert stages["ordering"] > 0, stages
-    t_cpu = time.perf_counter()
-    out_cpu = stm.Stitcher(DEFAULT_CONFIG, device="cpu").stitch(images)
-    cpu_s = time.perf_counter() - t_cpu
-    mad = canvas_vs_cpu(out, out_cpu)
+    assert line["stage_ms"]["ordering"] > 0, line["stage_ms"]
     assert 700 <= out.shape[1] <= 1400 and out.shape[0] <= 700, out.shape
+    assert np.array_equal(out, out_cold), "graph run != eager run"
     emit("default_512x384_warm", t, images=[list(i.shape) for i in images],
-         canvas=list(out.shape), warm_median_s=statistics.median(warm),
-         warm_s=warm, stage_s=stages, launches=launches,
-         warm_equals_cold=bool(np.array_equal(out, out_cold)),
-         cpu_canvas=list(out_cpu.shape), cpu_s=cpu_s, mad_vs_cpu=mad)
-    t = time.perf_counter()
-    prof = profile_run(st, images)
+         canvas=list(out.shape), panorama_ms=line["panorama_ms"],
+         cold_ms=line["cold_ms"], graphs=line["setup"]["graphs"],
+         stage_ms=line["stage_ms"], launches=launches,
+         warm_equals_eager_cold=True, checks=line["checks"],
+         profile={k: v for k, v in prof.items() if k != "kernels"})
     for k in kernels:
         k["launches"] = k["launches_per_panorama"] = launches[k["name"]]
-        k["device_ms_per_panorama"] = prof["kernels"][k["name"]]["ms"]
+        k["device_ms_per_panorama"] = prof["kernels"][k["name"]]["device_ms"]
         k["share_of_bound_per_panorama"] = (
             k["bound_ms_per_panorama"] / k["device_ms_per_panorama"]
             if k["device_ms_per_panorama"] else None)
     b6 = next(k for k in kernels if k["name"] == "warp_image")
     b6.update(b6_launch_floor(b6))
-    emit("default_512x384_profile", t, **prof)
     feats = st._matching_feats()
 
     # -- 5. the chain slice (SLICE_CONFIG), scene order
@@ -2558,13 +2768,15 @@ def main() -> int:
     assert b6["at_1440x1080_last_canvas"]["canvas"] == list(
         out_big.shape[:2]), b6["at_1440x1080_last_canvas"]
     del rec, a  # the recorded stacks must not count in the peak below
-    torch.cuda.reset_peak_memory_stats()
     edges = check_chain(seen)
     stages_big = dict(st.stage_times)
-    _native.reset_launch_counts()
-    warm = [run(st, images)[1] for _ in range(3)]
-    launches_big = {k: c // 3 for k, c in _native.launch_counts().items()}
+    # the warm runs: the bench's north-star cell, its last edge against
+    # the CPU (the whole CPU run takes a minute)
+    _, out_warm, line = bench_cell("pano4_1440x1080", cpu_check="last_edge")
+    launches_big = line["launches"]
+    check_launches(launches_big, b4=len(edges))
     assert launches_big["detect_compact"] == len(images), launches_big
+    assert np.array_equal(out_warm, out_big), "graph run != eager run"
     assert out_big.dtype == np.uint8 and out_big.shape[2] == 3
     assert 2000 <= out_big.shape[1] <= 4000, out_big.shape
     assert out_big.shape[0] <= 2000, out_big.shape
@@ -2572,11 +2784,12 @@ def main() -> int:
     emit("default_1440x1080", t, images=[list(i.shape) for i in images],
          scramble=SCRAMBLE, edges=edges, start=seen["start"],
          canvas=list(out_big.shape), cold_s=cold_s,
-         warm_median_s=statistics.median(warm), warm_s=warm,
-         stage_s_cold=stages_big, stage_s_warm=dict(st.stage_times),
+         panorama_ms=line["panorama_ms"], cold_ms=line["cold_ms"],
+         graphs=line["setup"]["graphs"], checks=line["checks"],
+         stage_s_cold=stages_big, stage_ms=line["stage_ms"],
          launches_per_run=launches_big, sift_dropped=tel["sift_dropped"],
          match_dropped=tel["match_dropped"],
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         peak_mem_gib=line["peak_mem_gib"],
          detect_compact=b1["at_1440x1080"],
          warp_image=b6["at_1440x1080_last_canvas"])
 
@@ -2619,8 +2832,6 @@ def main() -> int:
         emit(label, t, **stream_phase(DEFAULT_CONFIG, *size))
 
     # -- 12. warp_model="projective" at 4 x 512x384 and 4 x 1440x1080
-    import dataclasses
-
     from computervisionimagestich2_tpu_torch.ops import warp
 
     proj = dataclasses.replace(DEFAULT_CONFIG, warp_model="projective")
@@ -2729,10 +2940,19 @@ def main() -> int:
 
     # -- 17. BASELINE config 4 at 4 x 3840x2160: 4K frames, gain
     # compensation, every canvas above both blend gates
-    config4_phase(scrambled(crops(*UHD_HW, UHD_STEP, UHD_SCALE, seed=4)),
-                  kernels)
+    images_4k = scrambled(crops(*UHD_HW, UHD_STEP, UHD_SCALE, seed=4))
+    config4_phase(images_4k, kernels)
 
-    # -- 18. the bench on its headline cell
+    # -- 18. the programs as CUDA graphs against eager, on the scenes of
+    # the bench's panorama cells
+    for label, imgs, cfg in (("512x384", images_512, DEFAULT_CONFIG),
+                             ("1440x1080", images_big, DEFAULT_CONFIG),
+                             ("4k_gain", images_4k, config4())):
+        t = time.perf_counter()
+        emit(f"graphs_vs_eager_{label}", t, **graphs_phase(imgs, cfg))
+    del images_4k
+
+    # -- 19. the bench's own entry point on its headline cell
     t = time.perf_counter()
     emit("bench_pano4_512x384", t, **bench_phase())
 

@@ -74,8 +74,14 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
         inliers = inliers & sane[:, None]
         counts = torch.where(sane, counts, 0)
 
-    best = torch.argmax(counts)                           # first maximum
-    best_mask = inliers[best]
+    # the first maximum, gathered on the device: indexing with a 0-dim
+    # tensor would read it on the host
+    best = torch.argmax(counts).reshape(1)
+
+    def at_best(t):
+        return t.index_select(0, best)[0]
+
+    best_mask = at_best(inliers)
 
     def refit(mask, init):
         if model == "bilinear":
@@ -91,8 +97,8 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
         ey = yw2 - pairs.dst_xy[:, 1]
         return (torch.sqrt(ex * ex + ey * ey) < threshold) & pairs.valid
 
-    coeffs = refit(best_mask, coeffs_k[best])
-    mask, count = best_mask, counts[best]
+    coeffs = refit(best_mask, at_best(coeffs_k))
+    mask, count = best_mask, at_best(counts)
     for _ in range(lo_iters):
         mask2 = score(coeffs)
         count2 = mask2.sum(dtype=torch.int32)
@@ -107,9 +113,9 @@ def ransac_warp(pairs: MatchPairs, key: torch.Tensor,
         f_ok = torch.all((fxw >= lo_x) & (fxw <= hi_x)
                          & (fyw >= lo_y) & (fyw <= hi_y)
                          & torch.isfinite(fxw) & torch.isfinite(fyw))
-        coeffs = torch.where(f_ok, coeffs, coeffs_k[best])
-        mask = torch.where(f_ok, mask, inliers[best])
-        count = torch.where(f_ok, count, counts[best])
+        coeffs = torch.where(f_ok, coeffs, at_best(coeffs_k))
+        mask = torch.where(f_ok, mask, at_best(inliers))
+        count = torch.where(f_ok, count, at_best(counts))
     return coeffs, mask, count
 
 

@@ -16,6 +16,9 @@ its Gaussian levels only, so the extractor builds every octave first and
 detects them all in one call); the orientation and descriptor
 walks go through ``ops.sift_walks`` (kernels B2 and B3 on a CUDA
 tensor). Live counts stay on the device: nothing here waits for the host.
+``sift_extract_stats`` is a program (``core/programs.py``), as the JAX
+package jits it on ``cfg``: on the card one CUDA graph per luma shape and
+``cfg``, replayed for every image of that shape.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import math
 import torch
 
 from ..config import SiftConfig
+from ..core.programs import program
 from ..core.types import Features
 from ..ops import detect, sift_walks
 from ..ops import sift_kernels as sk
@@ -177,6 +181,7 @@ def _process_octave(octave: torch.Tensor, cfg: SiftConfig,
     return desc, xy, sigmas, oks, resps, stats
 
 
+@program("sift_extract_stats")
 def sift_extract_stats(gray: torch.Tensor, cfg: SiftConfig = SiftConfig()):
     """SIFT features of a grayscale image [H, W] (0..255) plus
     capacity-overflow telemetry.

@@ -47,7 +47,6 @@ import torch
 from ..config import DEFAULT_CONFIG, StitchConfig, check_supported
 from ..core.types import Features
 from ..device import resolve_device
-from ..ops.color import to_gray
 from ..ops.warp import cylindrical_project, trunc_u8
 from ..parallel.blend import plan_shard_levels, sharded_composite_and_blend
 from ..parallel.mesh import Mesh, gather_rows
@@ -59,7 +58,9 @@ from .matcher import match_features_bidir
 from .registration import (all_pairs_match_counts, plan_edges, register_edge,
                            update_features_by_offset,
                            update_features_by_warp)
-from .sift import sift_extract_stats
+# re-exported for callers that reach SIFT through this module; ``prepare``
+# runs it inlined in the features program
+from .sift import sift_extract_stats  # noqa: F401
 from .transfer import color_transfer
 
 
@@ -218,24 +219,26 @@ class Stitcher:
     def prepare(self, images: Sequence[np.ndarray]):
         """Project + SIFT for each input image (readFile,
         ImageProcess.cpp:11-24). Returns (projected [H, W, 3] float32
-        tensors, Features per image). Images of one shape share one u8
-        upload and their features are also kept stacked for the planned
-        path; mixed shapes go one by one and leave nothing stacked."""
+        tensors, Features per image). Each image runs the per-image
+        features program (``parallel/batched.py::_project_and_extract_one``:
+        on the card one CUDA graph per frame shape, replayed per frame, as
+        the JAX package dispatches one compiled program per frame). Images
+        of one shape share one u8 upload and their features are also kept
+        stacked for the planned path; mixed shapes are uploaded one by one
+        and leave nothing stacked."""
+        from ..parallel import batched
+
         cfg = self.config
         shapes = {np.asarray(img).shape for img in images}
         if len(shapes) == 1:
-            batch = torch.as_tensor(np.stack([np.asarray(i) for i in images]),
-                                    device=self.device)
+            frames = torch.as_tensor(
+                np.stack([np.asarray(i) for i in images]), device=self.device)
         else:
-            batch = [torch.as_tensor(np.asarray(i), device=self.device)
-                     for i in images]
-        projected, feats, stats = [], [], []
-        for img in batch:
-            proj = self._project(img)
-            f, s = sift_extract_stats(to_gray(proj), cfg.sift)
-            projected.append(proj)
-            feats.append(f)
-            stats.append(s)
+            frames = [torch.as_tensor(np.asarray(i), device=self.device)
+                      for i in images]
+        feats, projected, stats = zip(*(
+            batched._project_and_extract_one(img, cfg) for img in frames))
+        feats, projected = list(feats), list(projected)
         obs.log_sift_overflow(torch.stack(stats).cpu().numpy())
         self._feats_stacked = self._stack(shapes, feats)
         return projected, feats

@@ -21,32 +21,49 @@ products another way, so the two agree to float32 rounding.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
 
+from ..core.programs import const
 
+
+@lru_cache(maxsize=None)
 def gauss_taps(sigma: float) -> np.ndarray:
-    """VLFeat's normalized Gaussian taps (vl/sift.c:124-141)."""
+    """VLFeat's normalized Gaussian taps (vl/sift.c:124-141), cached per
+    sigma as a read-only array."""
     w = max(math.ceil(4.0 * sigma), 1)
     j = np.arange(2 * w + 1, dtype=np.float32)
     d = (j - w) / np.float32(sigma)
     taps = np.exp(-0.5 * d * d).astype(np.float32)
-    return taps / taps.sum()
+    taps = taps / taps.sum()
+    taps.setflags(write=False)
+    return taps
+
+
+@lru_cache(maxsize=None)
+def _replicate_index(r: int, length: int) -> np.ndarray:
+    """Source index of each position of an axis of ``length`` padded by
+    ``r`` on both sides with its edge values."""
+    idx = np.clip(np.arange(-r, length + r), 0, length - 1)
+    idx.setflags(write=False)
+    return idx
 
 
 def _conv1d_axis(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     """Correlate along ``axis`` with edge-replicate padding: out =
     sum_j taps[j] * xpad[j : j + L] in tap order. Taps are rounded to
     x's dtype first (as the reference casts them), so a bfloat16 blur
-    multiplies by bfloat16 taps."""
+    multiplies by bfloat16 taps. The index and the taps are device
+    constants (``const``)."""
     k = taps.shape[0]
     r = (k - 1) // 2
     axis = axis % x.dim()
     length = x.shape[axis]
-    idx = torch.arange(-r, length + r, device=x.device).clamp_(0, length - 1)
+    idx = const(_replicate_index(r, length), torch.int64, x.device)
     xp = x.index_select(axis, idx)
-    taps_t = torch.as_tensor(taps).to(device=x.device, dtype=x.dtype)
+    taps_t = const(taps, x.dtype, x.device)
     out = None
     for j in range(k):
         term = taps_t[j] * xp.narrow(axis, j, length)
@@ -112,7 +129,7 @@ def _affine_scan_batched(x_terms: torch.Tensor, a_mat: np.ndarray,
     so it is kept once, [N, 3, 3], and q for every row, [..., N, 3]."""
     n = x_terms.shape[-1]
     dev, dt = x_terms.device, x_terms.dtype
-    a = torch.as_tensor(np.asarray(a_mat, np.float32), device=dev, dtype=dt)
+    a = const(np.asarray(a_mat, np.float32), dt, dev)
     p = a.expand(n, 3, 3).clone()
     q = torch.zeros(x_terms.shape + (3,), device=dev, dtype=dt)
     q[..., 0] = x_terms

@@ -18,6 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..core.programs import const
+
 
 @lru_cache(maxsize=None)
 def _resize_weights(n_src: int, n_dst: int) -> np.ndarray:
@@ -64,8 +66,8 @@ def _banded_weights(n_src: int, n_dst: int):
 
 def _weights_col(w: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """Per-output-position weights shaped [1, n, 1, ...] to broadcast over
-    axis 1 of ``like``, in like's dtype."""
-    t = torch.as_tensor(w).to(device=like.device, dtype=like.dtype)
+    axis 1 of ``like``, in like's dtype (a device constant, ``const``)."""
+    t = const(w, like.dtype, like.device)
     return t.reshape((1, -1) + (1,) * (like.dim() - 2))
 
 
@@ -97,14 +99,13 @@ def _shrink_half_axis1(img: torch.Tensor, n_dst: int) -> torch.Tensor:
     return out
 
 
-def _enlarge2_axis1(img: torch.Tensor, n_dst: int) -> torch.Tensor:
-    """n_src == n_dst // 2 (the Laplacian expand): even/odd output columns
-    each read src[t-1+b] for b in 0..2."""
-    n_src = img.shape[1]
+@lru_cache(maxsize=None)
+def _enlarge2_weights(n_src: int, n_dst: int) -> tuple[np.ndarray, ...]:
+    """``_enlarge2_axis1``'s weights: for the even and the odd output
+    columns, w [n_half, 3] with out[t] = sum_b w[t, b] * src[t - 1 + b]."""
     dense = _resize_weights(n_src, n_dst)
-    padded = _pad_axis1(img, 1, 2)          # src index i -> padded i+1
-    halves = []
     n_half = (n_dst + 1) // 2
+    out = []
     for p in (0, 1):
         rows = dense[p::2]
         w = np.zeros((n_half, 3), np.float32)
@@ -113,6 +114,19 @@ def _enlarge2_axis1(img: torch.Tensor, n_dst: int) -> torch.Tensor:
                 j = t - 1 + b
                 if 0 <= j < n_src:
                     w[t, b] = rows[t, j]
+        w.setflags(write=False)
+        out.append(w)
+    return tuple(out)
+
+
+def _enlarge2_axis1(img: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """n_src == n_dst // 2 (the Laplacian expand): even/odd output columns
+    each read src[t-1+b] for b in 0..2."""
+    n_src = img.shape[1]
+    padded = _pad_axis1(img, 1, 2)          # src index i -> padded i+1
+    halves = []
+    n_half = (n_dst + 1) // 2
+    for w in _enlarge2_weights(n_src, n_dst):
         out_p = None
         for b in range(3):
             term = padded[:, b: b + n_half] * _weights_col(w[:, b], img)
@@ -134,7 +148,7 @@ def _resize_axis1(img: torch.Tensor, n_dst: int) -> torch.Tensor:
         return _enlarge2_axis1(img, n_dst)
     # generic ratio (not used by the blend pyramid)
     idx0, w = _banded_weights(n_src, n_dst)
-    idx0 = torch.as_tensor(idx0, device=img.device)
+    idx0 = const(idx0, torch.int64, img.device)
     out = None
     for b in range(w.shape[1]):
         term = img.index_select(1, idx0 + b) * _weights_col(w[:, b], img)

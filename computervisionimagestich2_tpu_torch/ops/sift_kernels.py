@@ -82,8 +82,12 @@ def compact_mask(mask: torch.Tensor, capacity: int):
     Returns (coords [capacity, ndim] int64, valid [capacity] bool) in
     C-scan order (s, then y, then x — the reference's append order)."""
     idx, valid = compact_indices(mask, capacity)
-    coords = torch.stack(torch.unravel_index(idx, mask.shape), dim=-1)
-    return coords, valid
+    # torch.unravel_index would upload the shape: divide by it instead
+    dims = []
+    for size in reversed(mask.shape):
+        dims.append(idx % size)
+        idx = idx // size
+    return torch.stack(dims[::-1], dim=-1), valid
 
 
 def _solve3_gauss(a_mat: torch.Tensor, b_vec: torch.Tensor) -> torch.Tensor:

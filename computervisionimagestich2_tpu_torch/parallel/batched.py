@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, StitchConfig, check_supported
+from ..core.programs import program
 from ..core.types import Features
 from ..device import resolve_device
 from ..models import compose
@@ -108,15 +109,28 @@ def batched_pairwise_register(gray_a, gray_b,
             torch.stack([to_device(n, dev) for _, n in out]))
 
 
+@program("project_and_extract")
+def _project_and_extract_one(image: torch.Tensor,
+                             cfg: StitchConfig = DEFAULT_CONFIG):
+    """The per-image features program (JAX ``parallel/batched.py:59``):
+    cylindrical projection of ``image`` [H, W, 3] (u8 or float), its luma
+    and ``sift_extract_stats``. Returns (Features, projection [H, W, 3]
+    float32, stats [4]). A program (``core/programs.py``): on the card one
+    CUDA graph per frame shape and ``cfg``, into which the SIFT program
+    is inlined."""
+    proj = cylindrical_project(image.float(), cfg.projection.angle_deg)
+    feats, stats = sift_extract_stats(to_gray(proj), cfg.sift)
+    return feats, proj, stats
+
+
 def _project_and_extract(images, cfg: StitchConfig):
-    """Cylindrical projection, luma and SIFT of each image [H, W, 3] of
-    ``images`` (a tensor [B, H, W, 3], or a list of images on their own
-    devices): (stacked Features, projections [B, H, W, 3] float32, stats
-    [B, 4]) on the first image's device."""
+    """``_project_and_extract_one`` of each image [H, W, 3] of ``images``
+    (a tensor [B, H, W, 3], or a list of images on their own devices):
+    (stacked Features, projections [B, H, W, 3] float32, stats [B, 4]) on
+    the first image's device."""
     feats, proj, stats = [], [], []
     for img in images:
-        p = cylindrical_project(img.float(), cfg.projection.angle_deg)
-        f, s = sift_extract_stats(to_gray(p), cfg.sift)
+        f, p, s = _project_and_extract_one(img, cfg)
         feats.append(f)
         proj.append(p)
         stats.append(s)

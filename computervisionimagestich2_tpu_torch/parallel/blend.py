@@ -30,6 +30,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..core.programs import const
 from ..models.blender import (blend_stacked, half_plane_mask, n_levels,
                               resolve_dtype)
 from ..ops.gaussian import _conv1d_axis, gauss_taps
@@ -81,7 +82,7 @@ def _halo_blur(xs: list[torch.Tensor], taps: np.ndarray) -> list[torch.Tensor]:
     out = []
     for x, up, down in zip(xw, above, below):
         ext = torch.cat([up, x, down], dim=0)
-        t = torch.as_tensor(taps).to(device=x.device, dtype=x.dtype)
+        t = const(taps, x.dtype, x.device)
         h_loc = x.shape[0]
         acc = None
         for j in range(taps.shape[0]):

@@ -2,7 +2,7 @@
 line per cell.
 
     python3 bench_torch.py [--cells a,b] [--seed S] [--runs N]
-                           [--device cuda|cpu] [--frame HxW]
+                           [--device cuda|cpu] [--frame HxW] [--eager]
 
 Every cell runs on one card, as a closed loop of one caller: the next
 panorama starts when the last has returned to the host. The frames are the
@@ -57,6 +57,24 @@ much each end-to-end median may grow before a change counts as a
 regression (``REGRESSION_BOUNDS``). The checks run outside the timed
 window.
 
+The main path runs as users get it: the features program and the edge
+plan as CUDA graphs (``core/programs.py``), captured in the cold run
+(``setup.graphs``: the captures and their host seconds, inside
+``cold_ms``); ``--eager`` runs every program eagerly instead, the port
+before its graphs, for a comparison in one call. The profile counts what
+the replays ran: the kernels of a replayed graph are device events of the
+trace, named as when launched one by one, so ``profile.kernels`` and the
+busy time hold them; ``graph_launches``, ``graph_device_events`` and
+``memcpy_htod_in_replays`` count the replays, their device events and the
+host-to-device copies inside them. ``launches`` are the wrappers'
+counters, which every replay advances by its graph's launches; on the
+card ``checks.launches_vs_trace`` holds the counters of each traced run
+against the device kernels its trace holds (``probes.launches_vs_trace``).
+``setup.memory``: the allocator's peak reserved bytes over the warm runs,
+what it holds reserved after them and the part of that in the graphs'
+private pools (``programs.graph_memory``); ``peak_mem_gib`` counts
+allocated bytes, which a replay does not move.
+
 ``--device cpu`` exists for the tests: a CPU run reports no device metric
 (``null``), says ``"device": "cpu"`` in every line and is its own CPU
 reference. Without a card and without ``--device cpu`` the bench raises.
@@ -79,6 +97,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_CONFIG
+from ..core import programs
 from ..core.types import Features
 from ..device import resolve_device
 from ..models import registration
@@ -90,8 +109,8 @@ from ..ops.warp import cylindrical_project, warp_xy
 from ..parallel import batched
 from ..utils import obs
 from .probes import (KERNELS, STAGE_SPAN, canvas_diff, graph_edges,
-                     is_chain, last_edge_vs_cpu, off_branch, profile_call,
-                     record_ordering, u8)
+                     is_chain, last_edge_vs_cpu, launches_vs_trace,
+                     off_branch, profile_call, record_ordering, u8)
 from .scenes import SCRAMBLE, config4, crops, scrambled
 
 # the reference stitches its Input/ (4 x 384x512 photos) in 1.83 s on an
@@ -109,18 +128,18 @@ MAX_REGISTER_PX = 0.01
 MAX_INLIER_DIFF = 2
 # By how much (a fraction of the parent's median) each end-to-end median
 # may grow (sift_kpts_per_s: fall) before a change counts as a regression:
-# the spread inside and across four calls of the default run on one
-# NVIDIA H100 80GB HBM3 at 700 W, by tools/bench_spread.py (PERF.md §2).
-# The host's share of the wall makes them wide.
+# the spread inside and across three calls of the default run (the
+# programs as CUDA graphs) on one NVIDIA H100 80GB HBM3 at 700 W, by
+# tools/bench_spread.py (PERF.md §2).
 REGRESSION_BOUNDS = {
-    "pano4_512x384": {"panorama_ms": 0.45, "cold_ms": 0.4,
-                      "peak_mem_gib": 0.05, "sift_kpts_per_s": 0.25},
-    "pano4_1440x1080": {"panorama_ms": 0.45, "cold_ms": 0.3,
-                        "peak_mem_gib": 0.05, "sift_kpts_per_s": 0.3},
-    "batch2x4_512x384": {"batch_ms": 0.4, "register_ms": 0.75,
-                         "cold_ms": 0.7, "peak_mem_gib": 0.05},
-    "pano4_4k_gain": {"panorama_ms": 0.3, "cold_ms": 1.0,
-                      "peak_mem_gib": 0.05, "sift_kpts_per_s": 0.2},
+    "pano4_512x384": {"panorama_ms": 0.2, "cold_ms": 0.4,
+                      "peak_mem_gib": 0.05, "sift_kpts_per_s": 0.05},
+    "pano4_1440x1080": {"panorama_ms": 0.2, "cold_ms": 0.15,
+                        "peak_mem_gib": 0.05, "sift_kpts_per_s": 0.1},
+    "batch2x4_512x384": {"batch_ms": 0.2, "register_ms": 0.1,
+                         "cold_ms": 0.25, "peak_mem_gib": 0.05},
+    "pano4_4k_gain": {"panorama_ms": 0.05, "cold_ms": 0.3,
+                      "peak_mem_gib": 0.05, "sift_kpts_per_s": 0.05},
 }
 
 
@@ -191,26 +210,44 @@ class _SpanTimer(obs.StageTimer):
 @contextlib.contextmanager
 def _recorded_plan():
     """While open, keep the arguments and the output of the stitcher's
-    ``plan_edges`` call, and a copy of the arguments of each edge's
-    ``register_edge`` inside it (the features of a later edge are updated
-    in place)."""
-    rec, plan_fn, edge_fn = {"edges": []}, stm.plan_edges, \
-        registration.register_edge
+    ``plan_edges`` call."""
+    rec, plan_fn = {}, stm.plan_edges
 
     def plan(*a):
         rec["args"], rec["plan"] = a, plan_fn(*a)
         return rec["plan"]
 
-    def register_edge(src, dst, *a, **kw):
-        rec["edges"].append((Features(*(x.clone() for x in src)),
-                             Features(*(x.clone() for x in dst)), a, kw))
-        return edge_fn(src, dst, *a, **kw)
-
-    stm.plan_edges, registration.register_edge = plan, register_edge
+    stm.plan_edges = plan
     try:
         yield rec
     finally:
-        stm.plan_edges, registration.register_edge = plan_fn, edge_fn
+        stm.plan_edges = plan_fn
+
+
+def _edge_inputs(args) -> list:
+    """The arguments of each edge's ``register_edge`` in the plan of
+    ``args`` (a recorded ``plan_edges`` call), on the host: the plan runs
+    again eagerly (``disable_graphs``: a replayed graph runs no Python)
+    and the features of each edge are copied as that edge saw them (a
+    later edge updates them in place)."""
+    edges, edge_fn = [], registration.register_edge
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def register_edge(src, dst, *a, **kw):
+        edges.append((_cpu_features(src), _cpu_features(dst),
+                      tuple(cpu(x) for x in a),
+                      {k: cpu(v) for k, v in kw.items()}))
+        return edge_fn(src, dst, *a, **kw)
+
+    registration.register_edge = register_edge
+    try:
+        with programs.disable_graphs():
+            registration.plan_edges(*args)
+    finally:
+        registration.register_edge = edge_fn
+    return edges
 
 
 @contextlib.contextmanager
@@ -238,8 +275,8 @@ def _cpu_features(f: Features) -> Features:
 def plan_parity(rec: dict, last_edge: bool = False) -> dict:
     """The recorded edge plan against the port's CPU run on the same
     features: the CPU ``plan_edges`` on every edge, or with ``last_edge``
-    the CPU ``register_edge`` on the last edge's recorded features (the
-    card's features after the earlier edges' updates). Both models
+    the CPU ``register_edge`` on the last edge's features as the device
+    updated them (``_edge_inputs``). Both models
     (forward, backward) of each edge are scored by ``reprojection_errors``
     on the matched pairs the CPU run fitted that model to; ``value`` is the
     largest difference between the card's and the CPU's errors over every
@@ -252,11 +289,11 @@ def plan_parity(rec: dict, last_edge: bool = False) -> dict:
         raise ValueError("reprojection parity scores bilinear models")
     plan = rec["plan"]
     t = time.perf_counter()
+    last = _edge_inputs(rec["args"])[-1] if last_edge else None
     with _ransac_pairs() as pairs:
         if last_edge:
-            src, dst, a, kw = rec["edges"][-1]
-            fwd, bwd, _, _ = registration.register_edge(
-                _cpu_features(src), _cpu_features(dst), *a, **kw)
+            src, dst, a, kw = last
+            fwd, bwd, _, _ = registration.register_edge(src, dst, *a, **kw)
             scored = {len(edges) - 1: (fwd.numpy(), bwd.numpy())}
         else:
             plan_cpu = registration.plan_edges(
@@ -298,9 +335,13 @@ def _profile(fn, off, device: torch.device) -> dict | None:
             "idle_share": p["idle_share"],
             "device_events": p["device_events"],
             "memcpy_htod_events": p["memcpy_htod_events"],
+            "graph_launches": p["graph_launches"],
+            "graph_device_events": p["graph_device_events"],
+            "memcpy_htod_in_replays": p["memcpy_htod_in_replays"],
             "kernels": {name: {"id": KERNELS[name][0],
                                "device_ms": k["ms"],
-                               "device_launches": k["device_launches"]}
+                               "device_launches": k["device_launches"],
+                               "counted_launches": k["counted_launches"]}
                         for name, k in p["kernels"].items()},
             "top_device_ops": [{"name": n, "ms": ms, "count": c}
                                for n, ms, c in p["top"][:10]],
@@ -310,8 +351,9 @@ def _profile(fn, off, device: torch.device) -> dict | None:
 def _warm(fn, runs: int, device: torch.device, stages=None) -> dict:
     """``runs`` timed calls of ``fn`` (each ends with its result on the
     host): their wall times (ms), the kernel launches of the first, the
-    peak device memory over them and, with ``stages`` (a Stitcher), the
-    stage times of each."""
+    peak device memory allocated over them, the allocator's memory
+    (``_memory``) and, with ``stages`` (a Stitcher), the stage times of
+    each."""
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -330,14 +372,36 @@ def _warm(fn, runs: int, device: torch.device, stages=None) -> dict:
     return {"out": out, "walls": walls, "stage_s": stage_s,
             "launches": launches if cuda else None,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
-                             if cuda else None)}
+                             if cuda else None),
+            "memory": _memory(device) if cuda else None}
+
+
+def _memory(device: torch.device) -> dict:
+    """What the caching allocator holds on the card after timed runs: the
+    peak reserved over them, what is reserved now and the part of it in
+    the graphs' private pools (``programs.graph_memory``). The allocated
+    peak (``peak_mem_gib``) misses the pools' free blocks: a replay
+    allocates nothing."""
+    return {"peak_reserved_gib": torch.cuda.max_memory_reserved(device)
+            / 2 ** 30, **programs.graph_memory(device)}
+
+
+def _launch_check(*profiles) -> dict:
+    """Each traced run's launch counters against the device kernels its
+    trace holds (``probes.launches_vs_trace``): what disagrees."""
+    wrong = [launches_vs_trace(p["kernels"]) for p in profiles]
+    return {"ok": not any(wrong), "mismatches": wrong,
+            "limit": "each counted launch's device kernels in the trace"}
 
 
 def run_panorama(cell: Cell, device: torch.device, runs: int,
-                 shift: int) -> dict:
+                 shift: int, keep: dict | None = None) -> dict:
     """One panorama cell: cold stitch (recording the ordering and the edge
     plan), the plan's parity, the timed warm runs, the last one's panorama
-    against the CPU (or the last edge of one more run), one traced run."""
+    against the CPU (or the last edge of one more run), one traced run.
+    ``keep`` (a dict, for callers that check more): receives the
+    ``stitcher``, the ``images`` and the last timed run's panorama
+    (``out``)."""
     cfg = _config(cell)
     h, w = cell.frame
     t = time.perf_counter()
@@ -346,10 +410,12 @@ def run_panorama(cell: Cell, device: torch.device, runs: int,
     scenes_s = time.perf_counter() - t
     st = stm.Stitcher(cfg, device=device)
     seen = record_ordering(st)
+    before = programs.capture_stats()
     with _recorded_plan() as plan_rec:
         t = time.perf_counter()
         out_cold = st.stitch(images)
         cold_ms = (time.perf_counter() - t) * 1e3
+    graphs = _graph_stats(before)
     live = int(st._feats_stacked.valid.sum())
 
     edges = graph_edges(seen)
@@ -386,13 +452,18 @@ def run_panorama(cell: Cell, device: torch.device, runs: int,
         st._timer = timer
     if profile is not None:
         profile["stage_ms"] = {k: v * 1e3 for k, v in traced_stages.items()}
+        checks["launches_vs_trace"] = _launch_check(profile)
+    if keep is not None:
+        keep.update(stitcher=st, images=images, out=warm["out"])
     panorama_ms = _stats(warm["walls"])
     features_s = [s["features"] for s in warm["stage_s"]]
     line = {
         "scene": {"step": cell.step, "feature_scale": cell.scale,
                   "seed": cell.seeds[0] + shift, "order": SCRAMBLE},
-        "setup": {"scenes_s": scenes_s}, "cold_ms": cold_ms,
-        "panorama_ms": panorama_ms, "peak_mem_gib": warm["peak_mem_gib"],
+        "setup": {"scenes_s": scenes_s, "graphs": graphs,
+                  "memory": warm["memory"]},
+        "cold_ms": cold_ms, "panorama_ms": panorama_ms,
+        "peak_mem_gib": warm["peak_mem_gib"],
         "sift_kpts_per_s": {"median": live / statistics.median(features_s),
                             "live_keypoints": live},
         "stage_ms": {k: statistics.median(s[k] for s in warm["stage_s"]) * 1e3
@@ -413,6 +484,16 @@ def run_panorama(cell: Cell, device: torch.device, runs: int,
                           "the reference's 1830 ms is an i9-9900K on those "
                           "photos")
     return line
+
+
+def _graph_stats(before: dict) -> dict:
+    """The CUDA graphs of a cell's cold run: whether programs run as
+    graphs (``--eager`` says not), the captures the run made and the host
+    seconds of their warm-ups and captures (both inside ``cold_ms``)."""
+    now = programs.capture_stats()
+    return {"enabled": programs.graphs_enabled(),
+            "captures": now["captures"] - before["captures"],
+            "capture_s": now["capture_s"] - before["capture_s"]}
 
 
 def _correct(checks: dict) -> bool:
@@ -482,9 +563,11 @@ def run_batch(cell: Cell, device: torch.device, runs: int,
         out, plans = batched.batched_stitch_chain(pans, cfg, device=device)
         return out.to(torch.uint8).cpu().numpy(), plans
 
+    before = programs.capture_stats()
     t = time.perf_counter()
     out_cold, plans = stitch_batch()
     cold_ms = (time.perf_counter() - t) * 1e3
+    graphs = _graph_stats(before)
     seq = batched.chain_edge_seq(k)
     equal = []
     for i in range(n_pan):
@@ -544,6 +627,8 @@ def run_batch(cell: Cell, device: torch.device, runs: int,
         (coeffs[:k - 1], inliers[:k - 1]), ref, (h, w),
         time.perf_counter() - t)
     n_pairs = n_pan * (k - 1)
+    if profile is not None:
+        checks["launches_vs_trace"] = _launch_check(profile, reg_profile)
     if reg["launches"] is not None:
         checks["register_b7_once_per_pair"] = {
             "ok": reg["launches"]["l1_two_nearest"] == n_pairs,
@@ -552,7 +637,9 @@ def run_batch(cell: Cell, device: torch.device, runs: int,
         "scene": {"step": cell.step, "feature_scale": cell.scale,
                   "seeds": [s + shift for s in cell.seeds],
                   "order": "scene order (chain)"},
-        "panoramas": int(n_pan), "setup": {"scenes_s": scenes_s},
+        "panoramas": int(n_pan),
+        "setup": {"scenes_s": scenes_s, "graphs": graphs,
+                  "memory": warm["memory"]},
         "cold_ms": cold_ms, "batch_ms": _stats(warm["walls"]),
         "peak_mem_gib": warm["peak_mem_gib"], "sift_kpts_per_s": None,
         "stage_ms": None, "canvas": list(canvas),
@@ -606,6 +693,9 @@ def _parse(argv) -> argparse.Namespace:
                         "metric")
     p.add_argument("--frame", type=_frame, default=None,
                    help="HxW replacing every cell's frame size (tests)")
+    p.add_argument("--eager", action="store_true",
+                   help="run every program eagerly (no CUDA graphs), to "
+                        "compare with the default in one call")
     args = p.parse_args(argv)
     unknown = [c for c in args.cells.split(",") if c not in CELLS]
     if unknown:
@@ -621,21 +711,23 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)  # raises without a card
     env = _environment(device)
     ok = True
-    for name in args.cells.split(","):
-        cell = _reduced(CELLS[name], args.frame)
-        t = time.perf_counter()
-        run = run_batch if cell.kind == "batch" else run_panorama
-        body = run(cell, device, args.runs or cell.runs, args.seed)
-        body["setup"]["build_s"] = env["build_s"]
-        line = {"cell": name, "kind": cell.kind, "config": cell.config,
-                "frame": list(cell.frame), "reduced": cell != CELLS[name],
-                "images_per_panorama": 4,
-                **{k: v for k, v in env.items() if k != "build_s"},
-                **body, "regression_bounds": REGRESSION_BOUNDS.get(name),
-                "seconds": time.perf_counter() - t,
-                "elapsed_s": time.perf_counter() - t0}
-        print(json.dumps(line), flush=True)
-        ok &= line["correct"]
+    with (programs.disable_graphs() if args.eager
+          else contextlib.nullcontext()):
+        for name in args.cells.split(","):
+            cell = _reduced(CELLS[name], args.frame)
+            t = time.perf_counter()
+            run = run_batch if cell.kind == "batch" else run_panorama
+            body = run(cell, device, args.runs or cell.runs, args.seed)
+            body["setup"]["build_s"] = env["build_s"]
+            line = {"cell": name, "kind": cell.kind, "config": cell.config,
+                    "frame": list(cell.frame),
+                    "reduced": cell != CELLS[name], "images_per_panorama": 4,
+                    **{k: v for k, v in env.items() if k != "build_s"},
+                    **body, "regression_bounds": REGRESSION_BOUNDS.get(name),
+                    "seconds": time.perf_counter() - t,
+                    "elapsed_s": time.perf_counter() - t0}
+            print(json.dumps(line), flush=True)
+            ok &= line["correct"]
     return 0 if ok else 1
 
 

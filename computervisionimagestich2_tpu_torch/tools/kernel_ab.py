@@ -132,6 +132,16 @@ def ptxas_report(tree: Path) -> dict:
 
 
 def record_inputs(path: Path) -> dict:
+    """``_record_inputs`` with the programs eager (``disable_graphs``): a
+    replayed CUDA graph calls no wrapper."""
+    from computervisionimagestich2_tpu_torch.core.programs import (
+        disable_graphs)
+
+    with disable_graphs():
+        return _record_inputs(path)
+
+
+def _record_inputs(path: Path) -> dict:
     """One cold default-path stitch of this tree on the crops of
     ``tools/scenes.py`` (as ``chip_smoke.py`` phase 3 stitches them),
     keeping the arguments of every B1-B6 call (as CPU tensors), B7's in

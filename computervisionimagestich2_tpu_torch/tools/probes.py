@@ -2,7 +2,8 @@
 a stitch: the ordering graph discovery found, the canvas against the
 port's CPU run, the last edge's composite + blend again on the CPU, and
 one call under ``torch.profiler`` (device time per kernel, busy and idle
-share, the longest idle gaps with the host work that ran through them).
+share, the CUDA graph replays and what ran in them, the longest idle gaps
+with the host work that ran through them).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops import _native
 from .scenes import SCRAMBLE
 
 CSRC = "computervisionimagestich2_tpu_torch/csrc/"
@@ -219,23 +221,69 @@ def _trace(prof) -> list:
 def profile_call(fn, off, gaps: int = 0) -> dict:
     """One warm call of ``fn`` (which synchronises the card) under
     ``torch.profiler``: device time and launches per kernel of the port
-    (by ``DEVICE_KERNELS``; every one not in ``off`` must have run), all
-    device kernels and the host-to-device copies among them (the ``top``
-    device operations by time), the device's busy time (kernels, copies
-    and memsets) against the wall; with ``gaps``, that many of the longest
+    (by ``DEVICE_KERNELS``; every one not in ``off`` must have run) beside
+    the launches its wrapper's counter recorded in the same call
+    (``counted_launches``; a graph replay adds its graph's), all device
+    kernels and the host-to-device copies among them (the ``top`` device
+    operations by time), the device's busy time (kernels, copies and
+    memsets) against the wall; with ``gaps``, that many of the longest
     idle gaps (``idle_gaps``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    before = _native.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         with record_function(CALL_SPAN):
             fn()
         wall = time.perf_counter() - t
+    after = _native.launch_counts()
     out = summarize(_trace(prof), wall, gaps)
+    for name, k in out["kernels"].items():
+        k["counted_launches"] = after[name] - before[name]
     assert out["device_busy_ms"] > 0 and all(
         k["ms"] > 0 for n, k in out["kernels"].items() if n not in off), out
     return out
+
+
+def launches_vs_trace(kernels: dict) -> dict:
+    """The kernels of a ``profile_call`` report whose counted launches
+    disagree with the trace: each wrapper's launch runs one device kernel
+    of each of its ``DEVICE_KERNELS`` (B4 and B7 a tile and a merge pass,
+    B5 its plan, tile and count kernels once per chunk of pairs, one
+    chunk on a stitch's few frames), so the trace must hold that many per
+    counted launch. Empty when every counter matches what ran."""
+    return {name: {"counted_launches": k["counted_launches"],
+                   "device_launches": k["device_launches"],
+                   "device_kernels_per_launch": len(DEVICE_KERNELS[name])}
+            for name, k in kernels.items()
+            if k["device_launches"]
+            != k["counted_launches"] * len(DEVICE_KERNELS[name])}
+
+
+def graph_replays(events: list, dev: list) -> dict:
+    """The CUDA graph replays of a trace: the host's graph launches, the
+    device events that carry a launch's correlation id (the graph's nodes,
+    as the trace lists them), and the host-to-device copies that ran
+    inside a replay, by correlation or between a replay's first and last
+    node."""
+    launches = [e for e in events if e.get("cat") in HOST_CATS
+                and "GraphLaunch" in e["name"]]
+    corr = {e.get("args", {}).get("correlation") for e in launches} - {None}
+    windows: dict = {}
+    for e in dev:
+        c = e.get("args", {}).get("correlation")
+        if c in corr:
+            lo, hi = windows.get(c, (e["ts"], e["ts"] + e["dur"]))
+            windows[c] = (min(lo, e["ts"]), max(hi, e["ts"] + e["dur"]))
+    htod = [e for e in dev if "HtoD" in e["name"]]
+    inside = [e for e in htod
+              if e.get("args", {}).get("correlation") in corr
+              or any(lo <= e["ts"] < hi for lo, hi in windows.values())]
+    return {"graph_launches": len(launches),
+            "graph_device_events": sum(
+                1 for e in dev if e.get("args", {}).get("correlation") in corr),
+            "memcpy_htod_in_replays": len(inside)}
 
 
 def summarize(events: list, wall: float, gaps: int = 0) -> dict:
@@ -259,6 +307,7 @@ def summarize(events: list, wall: float, gaps: int = 0) -> dict:
            "device_events": len(dev),
            "memcpy_htod_events": sum(s[1] for k, s in by_name.items()
                                      if "HtoD" in k),
+           **graph_replays(events, dev),
            "top": sorted(((k[:200], s[0] / 1e3, s[1])
                           for k, s in by_name.items()),
                          key=lambda x: -x[1])[:12],
