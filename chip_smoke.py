@@ -28,7 +28,9 @@ phase with its result and seconds:
    same bits twice; B4 the bits of B7 run each way; B5 the ratio counts of
    B4 on every pair; B1, B2 and B6 are also timed on a call with nothing
    to do (what a launch alone costs), and B6 on the panorama's last and
-   largest canvas, with the coefficients by value and as a tensor;
+   largest canvas through both of its entries (the model and offsets by
+   value, and in device memory, as the main path's programs hand them
+   over: equal bit for bit);
 4. the bench's headline cell on the same images (``tools/bench.py::
    run_panorama``, three warm runs; its JSON line is printed and must say
    ``correct``: the chain, the plan's reprojection parity with the CPU's,
@@ -36,7 +38,8 @@ phase with its result and seconds:
    run, and each kernel's launch counter in the traced run equal to the
    device kernels its trace holds, a launch's one to three), as users
    get it, the features program and the edge plan replayed
-   as CUDA graphs (``core/programs.py``); the warm panorama equal to
+   as CUDA graphs (``core/programs.py``), and so are each edge's
+   composite + blend and the enhance tail; the warm panorama equal to
    phase 3's eager one bit for bit; each kernel's launch count in one run
    (all six of the path must have launched, B1 once per image, B4 once
    per edge; a replay counts its graph's launches) and, from the cell's
@@ -59,7 +62,8 @@ phase with its result and seconds:
    memory, its panorama equal to the eager one; B1 exactly
    against plain on that size's four octave shapes and B6 on its 1489 x
    2948 canvas beside its bound; B6's cases (phase 7a): both warp models,
-   exact against plain and by value equal to the tensor call, on the last
+   by value exact against plain and the device-parameter entry equal to
+   it bit for bit (each entry timed), on the last
    canvases of phases 3 and 7 (recorded, and as affine / projective twins
    timed side by side), a canvas width that is not a multiple of 4, one
    channel, a 1 x 1 canvas and a horizon crossing the canvas; then kernel
@@ -108,7 +112,10 @@ phase with its result and seconds:
    panoramas of four crops in scene order, from two seeds, at 512x384 and
    1440x1080 on the default fixed canvas: launches per batch (B1 once per
    image, B4 and B6 once per edge), each panorama equal to itself stitched
-   alone, bit for bit, no ``batched_canvas_overflow``, warm wall, device
+   alone, bit for bit, the batch (one CUDA graph a panorama,
+   ``_stitch_one_fixed``) equal to its eager run, one graph launch a
+   panorama and no host-to-device copy inside one, no
+   ``batched_canvas_overflow``, warm wall, device
    busy and idle share, peak memory, the blend gates the canvas engages; at
    512x384 the canvases against the port's CPU batch and the content
    extents against the chain-ordered ``Stitcher``; then
@@ -169,22 +176,38 @@ phase with its result and seconds:
    a Stitcher under ``disable_graphs()`` and one with every graph dropped
    first, each a cold, a counted and two timed warm stitches and a
    profile; the graph run's panorama, each frame's features, projection
-   and stats, the [E, 23] plan and the launch counts equal the eager
-   run's bit for bit; the cold run captures two graphs (the features
-   program, into which ``sift_extract_stats`` is inlined, and the plan),
-   a second stitch none; the profile shows one graph launch per frame and
-   one for the plan and no host-to-device copy inside a replay; the
-   reversed edge sequence replays the plan's graph with the eager plan's
-   rows (the plan's key holds no edge); in each mode's profile every
-   launch counter equals the device kernels the trace holds. Each mode's
-   cold wall (with the captures' host seconds), warm walls, stage times,
-   peak memory allocated and reserved and the private pools (reserved
-   and allocated; more with graphs than eager, where every graph was
-   dropped and only what earlier captures left stays), device events,
-   host-to-device copies and idle share are printed;
+   and stats, the [E, 23] plan, each edge's composite + blend, the
+   enhance tail's output and the launch counts equal the eager run's bit
+   for bit; the cold run captures the features program (into which
+   ``sift_extract_stats`` is inlined), the plan, the composite + blend
+   once per canvas shape of its edges and the enhance tail, a second
+   stitch nothing; the profile shows one graph launch per frame, one for
+   the plan, one per edge and one for the tail, and no host-to-device
+   copy inside a replay; the reversed edge sequence replays the plan's
+   graph with the eager plan's rows (the plan's key holds no edge); in
+   each mode's profile every launch counter equals the device kernels
+   the trace holds. Each mode's cold wall (with the captures' host
+   seconds), warm walls, stage times, peak memory allocated and reserved
+   and the private pools (reserved and allocated; more with graphs than
+   eager, where every graph was dropped and only what earlier captures
+   left stays), device events, host-to-device copies and idle share are
+   printed, and fresh scenes of the same frame shape in the warm
+   process (three at 512x384 for the spread, one at 1440x1080, two at
+   4K: each one's first stitch, with the captures of its new canvas
+   shapes, and a second one), with the pools by program after them (at
+   4K the composite + blend program then holds its ``MAX_GRAPHS``); at
+   512x384 a fresh interpreter names the owner of what stays allocated
+   in a private pool after every graph is dropped (``pool_owner_probe``:
+   the allocator's history); (d) ``MANY_FRAMES`` 512x384 crops, one more
+   composite + blend key a frame than ``MAX_GRAPHS`` allows
+   (``many_edges_phase``): graphs against eager bit for bit, and a warm
+   stitch captures nothing, replays ``MAX_GRAPHS`` edges and runs the
+   rest eagerly;
 19. the port's benchmark, ``bench_torch.py --cells pano4_512x384 --runs
    1``, in a fresh interpreter: exit code 0, one JSON line on stdout,
-   printed, that says ``correct`` and shows the cold run's 2 captures.
+   printed, that says ``correct`` and shows the cold run's captures: the
+   features program, the plan, three composite + blend canvases and the
+   enhance tail.
 
 In phases 4, 5, 8-11 and 12-17 every launch count is set to 0 just before
 the path runs and read just after; each path must launch each of its
@@ -422,7 +445,7 @@ def telemetry():
     blend's canvas with the precision and seam-band gates it engaged and
     the last blend's arguments, and the histogram the enhance tail
     equalizes (its largest bin: the JAX package counts in float32, exact
-    below 2^24 a bin)."""
+    below 2^24 a bin) with the luma it counts (``luma``)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
@@ -436,8 +459,8 @@ def telemetry():
     tel = {"sift_dropped": [], "sift_live": [], "match_dropped": None,
            "warnings": [], "blends": [], "last_blend": None,
            "equalize": None}
-    orig = (batched._project_and_extract_one, stm.plan_edges, obs.warn,
-            stm.blend_edge, stm.equalize_and_mix)
+    orig = (batched._project_and_extract_one, stm.plan_edges_with_rows,
+            obs.warn, stm.blend_edge, stm.equalize_and_mix)
     features, plan, warn, blend, equalize = orig
 
     def features_rec(*a):  # the per-image features program
@@ -447,9 +470,9 @@ def telemetry():
         return f, p, s
 
     def plan_rec(*a):
-        p = plan(*a)
+        p, rows = plan(*a)
         tel["match_dropped"] = p[:, 22].astype(int).tolist()
-        return p
+        return p, rows
 
     def warn_rec(stage, **kv):
         tel["warnings"].append({"stage": stage, **kv})
@@ -468,21 +491,70 @@ def telemetry():
         y = rgb_to_ycbcr(result, compat_luma=a[0] if a else True,
                          to_u8=True)[..., 0]
         hist = torch.bincount(y.reshape(-1).long(), minlength=256)
+        tel["luma"] = y  # for histogram_cost; popped by its caller
         tel["equalize"] = {"pixels": int(y.numel()),
                            "largest_bin": int(hist.max()),
                            "largest_bin_level": int(hist.argmax()),
                            "largest_bin_below_2_24": int(hist.max()) < 2 ** 24}
         return equalize(result, *a)
 
-    (batched._project_and_extract_one, stm.plan_edges, obs.warn,
+    (batched._project_and_extract_one, stm.plan_edges_with_rows, obs.warn,
      stm.blend_edge, stm.equalize_and_mix) = (features_rec, plan_rec,
                                               warn_rec, blend_rec,
                                               equalize_rec)
     try:
         yield tel
     finally:
-        (batched._project_and_extract_one, stm.plan_edges, obs.warn,
-         stm.blend_edge, stm.equalize_and_mix) = orig
+        (batched._project_and_extract_one, stm.plan_edges_with_rows,
+         obs.warn, stm.blend_edge, stm.equalize_and_mix) = orig
+
+
+@contextlib.contextmanager
+def recorded_warnings():
+    """While open, keep the warnings a run prints (``obs.warn``), and
+    nothing else: unlike ``telemetry`` it reads no tensor, so it may stay
+    open while a program is captured."""
+    from computervisionimagestich2_tpu_torch.utils import obs
+
+    got, warn = [], obs.warn
+
+    def warn_rec(stage, **kv):
+        got.append({"stage": stage, **kv})
+        warn(stage, **kv)
+
+    obs.warn = warn_rec
+    try:
+        yield got
+    finally:
+        obs.warn = warn
+
+
+def histogram_cost(y) -> dict:
+    """The enhance tail's 256-bin histogram of luma ``y`` [H, W] on the
+    card (``equalization._histogram``: a ``scatter_add_`` of ones into a
+    row of bins per image row, graph-safe) beside ``torch.bincount``,
+    which reads the input's largest value back to the host: equal
+    counts, and the time of each
+    call between CUDA events over calls in a row (``cuda_ms``; each call's
+    device work is 0.3-6 ms, far above its few launches), and its device
+    time from the profiler where a whole window was traced (``device_ms``
+    over every device event, else None: a call's memsets now and then
+    miss the trace)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.models import equalization
+
+    idx = y.reshape(-1).long()
+    calls = {
+        "rows_scatter_add": lambda: equalization._histogram(y),
+        "bincount": lambda: torch.bincount(idx, minlength=256)}
+    ref = calls["bincount"]()
+    out = {"shape": list(y.shape)}
+    for name, fn in calls.items():
+        assert torch.equal(fn(), ref), name
+        out[f"{name}_ms_events"] = cuda_ms(fn)
+        out[f"{name}_device_ms"] = device_ms(fn, name, keys=("",))
+    return out
 
 
 def near_ratio(desc, valid, pairs, ratio: float) -> list:
@@ -717,7 +789,8 @@ def kernel_bound(name: str, a: tuple) -> dict:
         c = src.shape[2] if src.dim() == 3 else 1
         # per canvas pixel: the offsets (2), the model (bilinear 14;
         # projective 21 with its guard and two divisions), truncation (2)
-        # and the bounds test (4); the 48 bytes of parameters by value
+        # and the bounds test (4); the 44-48 bytes of parameters (by value,
+        # or read from device memory)
         ops = (22 if model == "bilinear" else 29) * ho * wo
         return bound(b6_read_pixels(a) * c * 4 + 48 + ho * wo * c * 4, ops)
     raise KeyError(name)
@@ -793,35 +866,63 @@ def check_b1(a: tuple) -> dict:
 
 def b6_plain(src, coeffs, ox, oy, canvas, model="bilinear"):
     """B6's plain version on the arguments of a call (host coefficients
-    become a tensor on the source's device)."""
+    become a tensor on the source's device; device ones stay there)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.ops import warp
 
-    c = torch.as_tensor(np.asarray(coeffs, np.float32), device=src.device)
+    c = (coeffs.to(src.device) if isinstance(coeffs, torch.Tensor) else
+         torch.as_tensor(np.asarray(coeffs, np.float32), device=src.device))
     return warp.warp_image_plain(src, c, ox, oy, canvas, model)
+
+
+def b6_forms(a: tuple) -> tuple:
+    """One B6 call ``a`` (src, coeffs, ox, oy, canvas, model), whether its
+    model and offsets are host floats or device tensors (the programs
+    hand over the plan's rows), in both forms of the wrapper: (host floats,
+    which take the by-value entry ``cvs_warp_image``; float32 tensors on
+    the source's card, which take the device-parameter entry
+    ``cvs_warp_image_dev``), with the same float32 values."""
+    import torch
+
+    src, c, ox, oy = a[:4]
+    c = np.asarray(c.cpu().numpy() if isinstance(c, torch.Tensor) else c,
+                   np.float32)
+    ox, oy = float(np.float32(float(ox))), float(np.float32(float(oy)))
+    host = (src, c.tolist(), ox, oy, *a[4:])
+    dev = (src, torch.as_tensor(c, device=src.device),
+           *(torch.tensor(v, dtype=torch.float32, device=src.device)
+             for v in (ox, oy)), *a[4:])
+    return host, dev
 
 
 def b6_at(a: tuple) -> dict:
     """Kernel B6 on the arguments ``a`` (src, coeffs, ox, oy, canvas,
-    model) of one call: exact against plain, the coefficients by value and
-    as a device tensor giving the same canvas; its device time beside its
-    bound."""
+    model) of one call, through both entries (``b6_forms``): by value
+    exact against plain, the device-parameter entry bit for bit equal to
+    it; each entry's device time beside the bound (``ms`` by value,
+    ``device_params_ms`` from device memory)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.ops import warp
 
-    got = warp.warp_image(*a)
-    as_tensor = warp.warp_image(a[0], torch.as_tensor(
-        np.asarray(a[1], np.float32), device=a[0].device), *a[2:])
-    assert torch.equal(got, b6_plain(*a)), ("B6 must be exact", a[4], a[5])
-    assert torch.equal(as_tensor, got), "B6: tensor and by-value differ"
+    host, dev = b6_forms(a)
+    got = warp.warp_image(*host)
+    assert torch.equal(got, b6_plain(*host)), ("B6 must be exact", a[4],
+                                               a[5])
+    assert torch.equal(warp.warp_image(*dev), got), \
+        "B6: the device-parameter entry and the by-value one differ"
     name = B6_BRANCH[a[5]]
     row = {"model": a[5], "src": list(a[0].shape), "canvas": list(a[4]),
            "covered_share": float((got != 0).any(dim=2).float().mean()),
-           **kernel_ms(lambda: warp.warp_image(*a), name),
-           **kernel_bound(name, a)}
+           **kernel_ms(lambda: warp.warp_image(*host), name),
+           **kernel_bound(name, a), "device_params_equal_by_value": True}
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    dp = kernel_ms(lambda: warp.warp_image(*dev), name)
+    row.update(device_params_ms=dp["ms"],
+               device_params_ms_events=dp["ms_events"],
+               device_params_ms_source=dp["ms_source"],
+               device_params_share_of_bound=row["bound_ms"] / dp["ms"])
     return row
 
 
@@ -843,8 +944,9 @@ def b6_twins(a: tuple) -> tuple:
 
 
 def b6_checks(main_last: tuple, big_last: tuple) -> dict:
-    """B6's cases on the card, both models, each exact against plain and
-    by value equal to the tensor call (``b6_at``): the main path's last
+    """B6's cases on the card, both models, each by value exact against
+    plain and the device-parameter entry equal to it (``b6_at``): the main
+    path's last
     canvas (530 x 1046 at 4 x 512x384) and the 1440x1080 path's (1489 x
     2948) as recorded and as affine / projective twins, timed side by side
     (the projective branch's cost over the bilinear one's on the same
@@ -1055,6 +1157,9 @@ def b6_launch_floor(row: dict) -> dict:
     times the device time of a launch alone, and the share of the bound
     the panorama could reach at that launch count, bound / (bound +
     floor)."""
+    if row["launch_alone_ms"] is None:  # the profiler kept no window
+        return {"launch_floor_ms_per_panorama": None,
+                "share_ceiling_at_this_launch_count": None}
     floor = row["launches_per_panorama"] * row["launch_alone_ms"]
     bound_ms = row["bound_ms_per_panorama"]
     return {"launch_floor_ms_per_panorama": floor,
@@ -1079,12 +1184,18 @@ def b6_extra(calls: list) -> dict:
     from computervisionimagestich2_tpu_torch.ops import warp
 
     last = calls[-1]
+    host, _ = b6_forms(calls[0])
     return {"library_note": "no PyTorch call computes it",
             "model": last[5], "canvas": list(calls[0][4]),
+            "entry": "cvs_warp_image_dev (the model and offsets in device "
+                     "memory, the plan's rows) on the main path; "
+                     "by_value_ms: cvs_warp_image on the same call",
+            "by_value_ms": device_ms(lambda: warp.warp_image(*host),
+                                     B6_BRANCH[last[5]]),
             "at_last_canvas": b6_at(last),
             "launch_alone_ms": device_ms(
                 lambda: warp.warp_image(*last[:4], (1, 1), last[5]),
-                B6_BRANCH[last[5]]),
+                B6_BRANCH[last[5]], windows=10),
             "launch_alone": "the last call's arguments with a 1 x 1 canvas"}
 
 
@@ -1563,9 +1674,12 @@ def batched_phase(h: int, w: int, step: int, scale: int,
     each of ``BATCH_SEEDS``, on the default fixed canvas. A cold batch,
     then a warm one with its launch counts (B1 once per image, B4 and B6
     once per edge, B5 and B7 never); the median wall of three warm batches,
-    one under ``torch.profiler`` (busy, idle), the peak memory of one;
-    each panorama equal to ``_stitch_one_fixed`` on it alone, bit for bit;
-    no ``batched_canvas_overflow``; which blend gates the canvas engages.
+    one under ``torch.profiler`` (busy, idle; one graph launch a panorama,
+    ``_stitch_one_fixed``'s, and no host-to-device copy inside it), the
+    peak memory of one; each panorama equal to ``_stitch_one_fixed`` on it
+    alone, bit for bit, and the batch equal to its eager run
+    (``disable_graphs``), canvases and plans; no
+    ``batched_canvas_overflow``; which blend gates the canvas engages.
     With ``cpu_check``: each canvas against the CPU batch of the port
     (MAD <= 3 u8 levels), and each content extent equal to the canvas of
     the chain-ordered ``Stitcher`` (exact canvas, no enhancement) on the
@@ -1575,6 +1689,7 @@ def batched_phase(h: int, w: int, step: int, scale: int,
     import torch
 
     from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.core import programs
     from computervisionimagestich2_tpu_torch.models import blender
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
     from computervisionimagestich2_tpu_torch.ops import _native
@@ -1592,9 +1707,11 @@ def batched_phase(h: int, w: int, step: int, scale: int,
         torch.cuda.synchronize()
         return out, plans, time.perf_counter() - t
 
-    with telemetry() as tel:
+    c0 = programs.capture_stats()
+    with recorded_warnings() as warnings:
         _, _, cold_s = run_batch()
-    warned = [w["stage"] for w in tel["warnings"]]
+    captures = programs.capture_stats()["captures"] - c0["captures"]
+    warned = [w["stage"] for w in warnings]
     _native.reset_launch_counts()
     out, plans, t1 = run_batch()
     launches = _native.launch_counts()
@@ -1610,13 +1727,21 @@ def batched_phase(h: int, w: int, step: int, scale: int,
         one, plan = batched._stitch_one_fixed(
             torch.as_tensor(pans[i], device="cuda"), cfg, canvas, seq)
         assert torch.equal(out[i], one), ("batch != one at a time", i)
-        assert np.array_equal(plans[i], plan), ("plans differ", i)
+        assert np.array_equal(plans[i], plan.cpu().numpy()), (
+            "plans differ", i)
+    with programs.disable_graphs():
+        out_e, plans_e, eager_s = run_batch()
+    assert torch.equal(out, out_e), "batch graphs != eager"
+    assert np.array_equal(plans, plans_e, equal_nan=True), "plans != eager"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     run_batch()
     peak = torch.cuda.max_memory_allocated()
     prof = profile_call(run_batch, OFF_MAIN_PATH | {"pair_match_counts"}
                         | off_branch(cfg.warp_model))
+    assert prof["graph_launches"] == n_pan, prof["graph_launches"]
+    assert prof["memcpy_htod_in_replays"] == 0, prof
+    assert not launches_vs_trace(prof["kernels"]), prof["kernels"]
     rep = {"panoramas": int(n_pan), "images_per_panorama": int(k),
            "frame": [h, w], "seeds": list(BATCH_SEEDS),
            "canvas": list(canvas), "canvas_mpx": canvas[0] * canvas[1] / 1e6,
@@ -1625,10 +1750,13 @@ def batched_phase(h: int, w: int, step: int, scale: int,
            "blend_seam_band": blender.seam_auto_engaged(cfg.blend, *canvas),
            "content_wh": plans[:, -1, 20:22].astype(int).tolist(),
            "match_dropped": plans[:, :, 22].astype(int).tolist(),
-           "cold_s": cold_s, "warm_median_s": statistics.median(warm),
-           "warm_s": warm, "launches": launches,
-           "equals_one_at_a_time": True, "warnings": sorted(set(warned)),
-           "peak_mem_gib": peak / 2 ** 30, "profile": prof}
+           "cold_s": cold_s, "captures": captures,
+           "warm_median_s": statistics.median(warm),
+           "warm_s": warm, "eager_s": eager_s, "launches": launches,
+           "equals_one_at_a_time": True, "equals_eager": True,
+           "warnings": sorted(set(warned)),
+           "peak_mem_gib": peak / 2 ** 30, "profile": prof,
+           "b4_per_edge": b4_capacity(pans, cfg)}
     if cpu_check:
         chain = dataclasses.replace(cfg, ordering="chain")
         for i in range(n_pan):
@@ -1646,6 +1774,34 @@ def batched_phase(h: int, w: int, step: int, scale: int,
         rep["cpu_content_wh"] = ref_plans[:, -1, 20:22].astype(int).tolist()
         rep["content_equals_chain_stitcher"] = True
     return rep
+
+
+def b4_capacity(pans, cfg) -> dict:
+    """B4 as the batch's plan calls it: ``_stitch_one_fixed`` reads no
+    live count back inside its program, so its plan matches on the
+    features' whole capacity, where the eager plan before it matched on
+    ``live_prefix`` (the same bits: tests/test_torch_batched.py::
+    test_plan_on_full_capacity_equals_live_prefix). Member 0's first
+    edge at both: the slots and B4's device time per edge."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.models.stitcher import (
+        live_prefix)
+    from computervisionimagestich2_tpu_torch.ops import distance
+    from computervisionimagestich2_tpu_torch.parallel import batched
+
+    with programs.disable_graphs():
+        feats, _, _ = batched._project_and_extract(
+            torch.as_tensor(pans[0], device="cuda"), cfg)
+    src, dst, _ = batched.chain_edge_seq(pans.shape[1])[0]
+    out = {"live": int(feats.valid.sum(dim=1).max())}
+    for label, f in (("full_capacity", feats),
+                     ("live_prefix", live_prefix(feats))):
+        a = (f.desc[src], f.desc[dst], f.valid[src], f.valid[dst])
+        out[label] = {"slots": int(f.desc.shape[1]), "device_ms": device_ms(
+            lambda: distance.two_nearest_bidir(*a), "l1_two_nearest_bidir")}
+    return out
 
 
 def register_phase(scene_order, b7: dict) -> dict:
@@ -1831,16 +1987,18 @@ BIG_PAIR_HW = (2304, 13312)
 
 def record_edges(images, config) -> list:
     """The arguments of every composite + blend of one planned stitch of
-    ``images`` on the card (``stitcher._composite_and_blend``: the
-    projected image, the previous result, the backward model, min_x,
-    min_y, the working canvas, ...)."""
+    ``images`` on the card (``stitcher._composite_and_blend``), with the
+    model and offsets it takes on the device read back as the mesh path
+    takes them: the projected image, the previous result, the backward
+    model (numpy), min_x, min_y (floats), the working canvas, ..."""
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
 
     calls, fn = [], stm._composite_and_blend
 
-    def rec(*a):
-        calls.append(a)
-        return fn(*a)
+    def rec(src, res, bwd, offsets, *rest):
+        min_x, min_y = offsets.tolist()
+        calls.append((src, res, bwd.cpu().numpy(), min_x, min_y, *rest))
+        return fn(src, res, bwd, offsets, *rest)
 
     stm._composite_and_blend = rec
     try:
@@ -2429,8 +2587,10 @@ def config4_phase(images, kernels: list) -> None:
          canvas_mpx=out_4k.shape[0] * out_4k.shape[1] / 1e6, cold_s=cold_s,
          stage_s_cold=dict(st.stage_times), match_overflow=[
              w for w in tel["warnings"] if w["stage"] == "match_overflow"],
-         **{k: v for k, v in tel.items() if k != "last_blend"})
+         **{k: v for k, v in tel.items() if k not in ("last_blend", "luma")})
     del tel["last_blend"]  # its canvases must not count in the peaks below
+    t = time.perf_counter()
+    emit("config4_4k_histogram", t, **histogram_cost(tel.pop("luma")))
     t = time.perf_counter()
     n_octaves = len(rec.args["detect_compact"][0])
     uhd = uhd_kernels(rec, st._feats_stacked, edges[0])
@@ -2485,21 +2645,27 @@ def bench_cell(name: str, **change) -> tuple:
     return keep["stitcher"], keep["out"], line
 
 
+# phase 18d: a scene with more composite + blend keys than a program keeps
+MANY_FRAMES, MANY_SEED = 11, 7
+
 PROFILE_KEYS = ("wall_s", "device_busy_ms", "idle_share", "device_events",
                 "memcpy_htod_events", "graph_launches", "graph_device_events",
-                "memcpy_htod_in_replays")
+                "memcpy_htod_in_replays", "graph_launch_host_ms")
 
 
 @contextlib.contextmanager
 def program_outputs():
     """While open, keep what the stitcher's programs return: each frame's
-    (Features, projection, stats) from the features program, and the
-    plan's arguments and [E, 23] rows."""
+    (Features, projection, stats) from the features program, the plan's
+    arguments and [E, 23] rows, each edge's canvas from the composite +
+    blend with the program's key, and the enhance tail's output."""
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
     from computervisionimagestich2_tpu_torch.parallel import batched
 
-    got = {"features": []}
-    features, plan = batched._project_and_extract_one, stm.plan_edges
+    got = {"features": [], "edges": [], "edge_keys": [], "enhanced": []}
+    orig = (batched._project_and_extract_one, stm.plan_edges_with_rows,
+            stm._composite_and_blend, stm.equalize_and_mix)
+    features, plan, edge, enhance = orig
 
     def features_rec(*a):
         out = features(*a)
@@ -2507,22 +2673,39 @@ def program_outputs():
         return out
 
     def plan_rec(*a):
-        got["plan_args"], got["plan"] = a, plan(*a)
-        return got["plan"]
+        got["plan_args"] = a
+        got["plan"], rows = plan(*a)
+        return got["plan"], rows
 
-    batched._project_and_extract_one, stm.plan_edges = features_rec, plan_rec
+    def edge_rec(*a):
+        got["edge_keys"].append(edge.key(*a)[0])
+        got["edges"].append(edge(*a))
+        return got["edges"][-1]
+
+    def enhance_rec(*a):
+        got["enhanced"].append(enhance(*a))
+        return got["enhanced"][-1]
+
+    (batched._project_and_extract_one, stm.plan_edges_with_rows,
+     stm._composite_and_blend, stm.equalize_and_mix) = (
+        features_rec, plan_rec, edge_rec, enhance_rec)
     try:
         yield got
     finally:
-        batched._project_and_extract_one, stm.plan_edges = features, plan
+        (batched._project_and_extract_one, stm.plan_edges_with_rows,
+         stm._composite_and_blend, stm.equalize_and_mix) = orig
 
 
-def program_mode(images, cfg, eager: bool) -> tuple:
+def program_mode(images, cfg, eager: bool, fresh: list) -> tuple:
     """One mode of phase 18: a Stitcher's cold stitch, a warm one with its
     launch counts and program outputs (``program_outputs``), two more
     timed, and one profiled; eager under ``disable_graphs()``, else with
-    every program's graphs dropped first, so the cold run captures.
-    Returns (report, warm panorama, program outputs, launches)."""
+    every program's graphs dropped first, so the cold run captures. Then
+    each fresh scene of the same frame shape in ``fresh``, in turn, in
+    the warm process: its first stitch, with the captures it made (new
+    canvas shapes under ``exact_canvas``), and a second one; and the
+    memory after them. Returns (report, warm panorama, program outputs,
+    launches)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.core import programs
@@ -2537,10 +2720,11 @@ def program_mode(images, cfg, eager: bool) -> tuple:
         st = stm.Stitcher(cfg, device="cuda")
         c0 = programs.capture_stats()
         out_cold, cold_s = run(st, images)
+        cold = programs.captures_since(c0)
         c1 = programs.capture_stats()
         with program_outputs() as got:
             out, t1, launches = counted_run(st, images)
-        c2 = programs.capture_stats()
+        warm_captures = programs.captures_since(c1)["captures"]
         walls = [t1] + [run(st, images)[1] for _ in range(2)]
         stages = dict(st.stage_times)
         torch.cuda.synchronize()
@@ -2548,12 +2732,26 @@ def program_mode(images, cfg, eager: bool) -> tuple:
         memory = {"peak_reserved_gib": torch.cuda.max_memory_reserved()
                   / 2 ** 30, **programs.graph_memory("cuda")}
         prof = profile_run(st, images)
+        fresh_rep = []
+        for scene in fresh:
+            c3 = programs.capture_stats()
+            first = run(st, scene)[1]
+            made = programs.captures_since(c3)
+            fresh_rep.append({
+                "first_s": first, "second_s": run(st, scene)[1],
+                **{k: made[k] for k in ("captures", "capture_s",
+                                        "evictions")},
+                "captures_by_program": made["by_program"]})
+        torch.cuda.synchronize()
+        after_fresh = {"peak_reserved_gib": torch.cuda.max_memory_reserved()
+                       / 2 ** 30, **programs.graph_memory("cuda")}
     assert np.array_equal(out, out_cold), "warm != cold"
     wrong = launches_vs_trace(prof["kernels"])
     assert not wrong, ("launch counters != the trace", wrong)
-    rep = {"cold_s": cold_s, "captures": c1["captures"] - c0["captures"],
-           "capture_s": c1["capture_s"] - c0["capture_s"],
-           "warm_captures": c2["captures"] - c1["captures"],
+    rep = {"cold_s": cold_s, "captures": cold["captures"],
+           "capture_s": cold["capture_s"],
+           "captures_by_program": cold["by_program"],
+           "warm_captures": warm_captures,
            "warm_s": walls, "warm_median_s": statistics.median(walls),
            "stage_s": stages, "launches": launches,
            "peak_mem_gib": peak / 2 ** 30, "held_before_gib": held / 2 ** 30,
@@ -2561,8 +2759,66 @@ def program_mode(images, cfg, eager: bool) -> tuple:
            "launches_vs_trace": {n: [k["counted_launches"],
                                      k["device_launches"]]
                                  for n, k in prof["kernels"].items()},
-           "profile": {k: prof[k] for k in PROFILE_KEYS}}
+           "profile": {k: prof[k] for k in PROFILE_KEYS},
+           "fresh_scenes": fresh_rep, "memory_after_fresh": after_fresh}
     return rep, out, got, launches
+
+
+def many_edges_phase(n: int = MANY_FRAMES) -> dict:
+    """Phase 18d: ``n`` 512x384 crops of one scene in a seeded order, so
+    ``n - 1`` edges, each growing the canvas: more composite + blend keys
+    than the program keeps (``MAX_GRAPHS``). The same Stitcher stitches
+    eagerly (``disable_graphs``) and with graphs, cold then three warm.
+    The panoramas and launch counts equal the eager ones bit for bit; a
+    warm stitch captures and drops nothing: it replays the first
+    ``MAX_GRAPHS`` edges' graphs and runs the others eagerly
+    (``overflows``), call after call (one scope a stitch,
+    ``core/programs.py::scope``), beside the frames', the plan's and the
+    tail's graphs."""
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    scene = crops(512, 384, 224, 2, seed=MANY_SEED, n=n)
+    order = np.random.default_rng(n).permutation(n).tolist()
+    images = [scene[k] for k in order]
+    programs.clear_graphs()
+    st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
+    with programs.disable_graphs():
+        out_e, cold_e = run(st, images)
+        _, t_e, launches_e = counted_run(st, images)
+        eager_s = [t_e] + [run(st, images)[1] for _ in range(2)]
+    c0 = programs.capture_stats()
+    out_c, cold_g = run(st, images)
+    cold = programs.captures_since(c0)
+    warm, walls = [], []
+    for i in range(3):
+        c = programs.capture_stats()
+        if i == 0:
+            out_w, t, launches_g = counted_run(st, images)
+        else:
+            out_w, t = run(st, images)
+        walls.append(t)
+        warm.append(programs.captures_since(c))
+    assert np.array_equal(out_c, out_e) and np.array_equal(out_w, out_e), \
+        "many-edge graph panorama != eager"
+    assert launches_g == launches_e, (launches_g, launches_e)
+    edge = stm._composite_and_blend
+    keys = cold["by_program"]["composite_and_blend"] + cold["overflows"]
+    assert keys == n - 1 > edge.max_graphs, cold
+    for d in warm:
+        assert d["captures"] == 0 and d["evictions"] == 0, d
+        assert d["overflows"] == n - 1 - edge.max_graphs, d
+        # frames, the plan, the kept edges, the enhance tail
+        assert d["replays"] == n + 1 + edge.max_graphs + 1, d
+    return {"frames": n, "order": order, "canvas": list(out_e.shape),
+            "composite_keys": keys, "max_graphs": edge.max_graphs,
+            "cold": {"graphs_s": cold_g, "eager_s": cold_e, **cold},
+            "warm": warm[0], "warm_s": walls, "eager_warm_s": eager_s,
+            "warm_median_ratio": (statistics.median(walls)
+                                  / statistics.median(eager_s)),
+            "equal": {"panorama": True, "launches": True},
+            "memory": programs.graph_memory("cuda")}
 
 
 def bench_phase() -> dict:
@@ -2581,7 +2837,11 @@ def bench_phase() -> dict:
     print(json.dumps(line), flush=True)
     assert line["cell"] == "pano4_512x384", line
     assert line["device"] == "cuda" and line["correct"] is True, line
-    assert line["setup"]["graphs"]["captures"] == 2, line["setup"]
+    # the features program, the plan, the three edges' canvases (under
+    # exact_canvas every edge grows the canvas) and the enhance tail
+    assert line["setup"]["graphs"]["by_program"] == {
+        "project_and_extract": 1, "plan_edges": 1, "composite_and_blend": 3,
+        "equalize_and_mix": 1}, line["setup"]
     return {"correct": line["correct"], "panorama_ms": line["panorama_ms"],
             "cold_ms": line["cold_ms"], "graphs": line["setup"]["graphs"],
             "reprojection_parity_px": line["checks"][
@@ -2590,23 +2850,76 @@ def bench_phase() -> dict:
             "bench_seconds": line["elapsed_s"]}
 
 
-def graphs_phase(images, cfg) -> dict:
+def pool_owner_probe() -> dict:
+    """What stays allocated in a CUDA graph's private pool after every
+    graph is dropped: a cold default stitch at 4 x 512x384 with the
+    allocator's history on (Python and C++ frames), then
+    ``programs.clear_graphs()``; each block still allocated in a private
+    pool, with its size, stream and innermost frames. Meant for a fresh
+    interpreter (``graphs_phase`` runs it in one): the history must be on
+    before the process's first capture."""
+    import gc
+
+    import torch
+
+    from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+
+    # the state of live blocks with their allocation's frames, no trace
+    torch.cuda.memory._record_memory_history(
+        enabled="state", context="alloc", stacks="all")
+    images = scrambled(crops(512, 384, 224, 2, seed=0))
+    stm.Stitcher(DEFAULT_CONFIG, device="cuda").stitch(images)
+    with_graphs = programs.graph_memory("cuda")
+    programs.clear_graphs()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    owners = []
+    for seg in snap["segments"]:
+        if tuple(seg["segment_pool_id"]) == (0, 0):
+            continue
+        for blk in seg["blocks"]:
+            if blk["state"] != "active_allocated":
+                continue
+            frames = [f"{f['filename'].split('/')[-1]}:{f['line']} "
+                      f"{f['name']}"[:160] for f in blk.get("frames", [])]
+            owners.append({"bytes": blk["size"], "stream": seg["stream"],
+                           "pool": list(seg["segment_pool_id"]),
+                           "frames": frames[:40]})
+    return {"graph_memory_with_graphs": with_graphs,
+            "graph_memory_after_clear": programs.graph_memory("cuda"),
+            "owners": owners}
+
+
+def graphs_phase(images, cfg, fresh, owner_probe: bool = False) -> dict:
     """Phase 18 on one scene: the stitch with its programs eager
-    (``disable_graphs``), then as users get it, the features program and
-    the plan as CUDA graphs (``program_mode``). The graph run's panorama,
-    each frame's features, projection and stats and the [E, 23] plan
-    equal the eager run's bit for bit, and so do the launch counts; the
-    cold run captures the two programs, a second stitch nothing; every
-    frame and the plan replay a graph, and no host-to-device copy runs
-    inside a replay. Then another edge sequence of the same length (each
-    edge reversed) replays the plan's graph, with the eager plan's rows."""
+    (``disable_graphs``), then as users get it, the features program, the
+    plan, each edge's composite + blend and the enhance tail as CUDA
+    graphs (``program_mode``). The graph run's panorama, each frame's
+    features, projection and stats, the [E, 23] plan, each edge's canvas
+    and the enhanced canvas equal the eager run's bit for bit, and so do
+    the launch counts; the cold run captures each program once (the
+    composite + blend once per distinct key of its edges), a second
+    stitch nothing; every frame, the plan, every edge and the tail
+    replay a graph, and no host-to-device copy runs inside a replay.
+    Then another edge sequence of the same length (each edge reversed)
+    replays the plan's graph, with the eager plan's rows. Both modes
+    also time fresh scenes of the frame shape (``fresh``, a list) in the
+    warm process: what the captures of new canvas shapes cost a new
+    scene. With ``owner_probe``, ``pool_owner_probe`` in a fresh
+    interpreter."""
     import torch
 
     from computervisionimagestich2_tpu_torch.core import programs
     from computervisionimagestich2_tpu_torch.models import registration
 
-    eager, out_e, got_e, launches_e = program_mode(images, cfg, True)
-    graph, out_g, got_g, launches_g = program_mode(images, cfg, False)
+    eager, out_e, got_e, launches_e = program_mode(images, cfg, True, fresh)
+    graph, out_g, got_g, launches_g = program_mode(images, cfg, False,
+                                                   fresh)
     assert np.array_equal(out_e, out_g), "graph panorama != eager"
     assert launches_e == launches_g, (launches_e, launches_g)
     assert len(got_e["features"]) == len(got_g["features"]) == len(images)
@@ -2616,15 +2929,28 @@ def graphs_phase(images, cfg) -> dict:
                         (*feats_g, proj_g, stats_g)):
             assert torch.equal(a, b), "graph features != eager"
     assert np.array_equal(got_e["plan"], got_g["plan"]), "graph plan != eager"
-    assert graph["captures"] == 2 and graph["warm_captures"] == 0, graph
+    n_edges = len(got_g["plan"])
+    assert len(got_e["edges"]) == len(got_g["edges"]) == n_edges
+    for a, b in zip(got_e["edges"], got_g["edges"]):
+        assert torch.equal(a, b), "graph composite + blend != eager"
+    assert len(got_e["enhanced"]) == len(got_g["enhanced"]) == 1
+    assert torch.equal(got_e["enhanced"][0], got_g["enhanced"][0]), \
+        "graph enhance tail != eager"
+    edge_keys = len(set(got_g["edge_keys"]))
+    assert graph["captures_by_program"] == {
+        "project_and_extract": 1, "plan_edges": 1,
+        "composite_and_blend": edge_keys, "equalize_and_mix": 1}, graph
+    assert graph["warm_captures"] == 0, graph
     assert eager["captures"] == 0, eager
+    assert all(f["captures"] == 0 for f in eager["fresh_scenes"]), eager
     # with every graph dropped, the private pools still hold what a tensor
     # made in an earlier capture keeps; the graphs' own pools come on top
     assert (graph["memory"]["graph_pools_reserved_gib"]
             > eager["memory"]["graph_pools_reserved_gib"]), (graph["memory"],
                                                              eager["memory"])
     prof = graph["profile"]
-    assert prof["graph_launches"] == len(images) + 1, prof
+    # frames, the plan, the edges, the enhance tail
+    assert prof["graph_launches"] == len(images) + 1 + n_edges + 1, prof
     assert prof["memcpy_htod_in_replays"] == 0, prof
 
     feats, edges, img_hw, start_hw, pcfg = got_g["plan_args"]
@@ -2636,10 +2962,24 @@ def graphs_phase(images, cfg) -> dict:
     assert registration.plan_rows.captures == n0, "the plan key held edges"
     assert np.array_equal(rows, ref, equal_nan=True)
     assert not np.array_equal(rows, got_g["plan"], equal_nan=True)
-    return {"edges": [list(e) for e in edges],
+    owner = None
+    if owner_probe:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import json, chip_smoke; print(json."
+             "dumps(chip_smoke.pool_owner_probe()))"], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        owner = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {"pool_owner": owner, "edges": [list(e) for e in edges],
             "other_edges_replayed": [list(e) for e in other],
+            "edge_canvases": [list(e.shape) for e in got_g["edges"]],
+            "composite_keys": edge_keys,
             "equal": {"panorama": True, "features": True, "plan": True,
-                      "launches": True},
+                      "edges": True, "enhanced": True, "launches": True},
+            "fresh_scene_first_ratios": [
+                g["first_s"] / e["first_s"]
+                for g, e in zip(graph["fresh_scenes"],
+                                eager["fresh_scenes"])],
             "canvas": list(out_g.shape), "graphs": graph, "eager": eager,
             "warm_median_ratio": (graph["warm_median_s"]
                                   / eager["warm_median_s"])}
@@ -2945,12 +3285,22 @@ def main() -> int:
 
     # -- 18. the programs as CUDA graphs against eager, on the scenes of
     # the bench's panorama cells
-    for label, imgs, cfg in (("512x384", images_512, DEFAULT_CONFIG),
-                             ("1440x1080", images_big, DEFAULT_CONFIG),
-                             ("4k_gain", images_4k, config4())):
+    for label, imgs, cfg, (h, w, step, scale), seeds in (
+            ("512x384", images_512, DEFAULT_CONFIG, (512, 384, 224, 2),
+             (3, 5, 6)),
+            ("1440x1080", images_big, DEFAULT_CONFIG, (1440, 1080, 630, 6),
+             (3,)),
+            ("4k_gain", images_4k, config4(),
+             (*UHD_HW, UHD_STEP, UHD_SCALE), (5, 6))):
         t = time.perf_counter()
-        emit(f"graphs_vs_eager_{label}", t, **graphs_phase(imgs, cfg))
+        fresh = [scrambled(crops(h, w, step, scale, seed=sd))
+                 for sd in seeds]
+        emit(f"graphs_vs_eager_{label}", t, **graphs_phase(
+            imgs, cfg, fresh, owner_probe=label == "512x384"))
+        del fresh
     del images_4k
+    t = time.perf_counter()
+    emit(f"graphs_many_edges_{MANY_FRAMES}x512x384", t, **many_edges_phase())
 
     # -- 19. the bench's own entry point on its headline cell
     t = time.perf_counter()

@@ -3,9 +3,13 @@
 
 The JAX package runs its main path as a few programs, each compiled once
 per static key: the per-image features program (``parallel/batched.py::
-_project_and_extract_one`` around ``models/sift.py::sift_extract_stats``)
-and the edge plan (``models/registration.py::plan_rows``). Run eagerly,
-PyTorch pays the host's launch of every kernel of them, one at a time.
+_project_and_extract_one`` around ``models/sift.py::sift_extract_stats``),
+the edge plan (``models/registration.py::plan_rows``), each edge's
+composite + blend (``models/stitcher.py::_composite_and_blend``), the
+enhance tail (``models/equalization.py::equalize_and_mix``) and a batch's
+whole panorama (``parallel/batched.py::_stitch_one_fixed``, into which
+the features program and the plan are inlined). Run eagerly, PyTorch
+pays the host's launch of every kernel of them, one at a time.
 ``program`` gives a function the JAX execution contract on a CUDA device:
 
 - the key is the function's static arguments (every argument that is not
@@ -32,7 +36,14 @@ PyTorch pays the host's launch of every kernel of them, one at a time.
 - each program keeps at most ``max_graphs`` graphs (``MAX_GRAPHS``), the
   least recently replayed dropped first: every graph holds its own memory
   pool (``graph_memory`` reads them), and a process that sees many frame
-  shapes or edge counts would otherwise keep one per key for good.
+  shapes or edge counts would otherwise keep one per key for good;
+- inside ``scope()`` (one call of an entry point: ``Stitcher.stitch``) a
+  graph the scope captured or replayed is not dropped for another key of
+  the same scope: a key that finds all of its program's graphs used by
+  the scope runs eagerly (``overflows``). A stitch with more edge canvases
+  than ``max_graphs`` so replays the same ones call after call, where a
+  plain least-recent drop would miss on every edge of a cycle longer than
+  the cache and capture each anew.
 
 A graph must not copy from pageable host memory, and a warm call must not
 upload anything: ``const`` keeps the device copy of each host constant
@@ -48,6 +59,7 @@ import collections
 import contextlib
 import functools
 import inspect
+import itertools
 import time
 
 import numpy as np
@@ -58,6 +70,8 @@ from ..ops import _native
 _DISABLED = 0  # disable_graphs() depth
 _INLINE = 0  # depth of program warm-ups and captures in progress
 _CAPTURING = 0  # depth of captures in progress
+_SCOPE: int | None = None  # the open scope's id (the outermost one's)
+_SCOPE_IDS = itertools.count(1)
 _CONSTS: dict[tuple, tuple[torch.Tensor, int]] = {}
 _PROGRAMS: list["Program"] = []
 # graphs a program keeps: a rig's frame shape, its edge counts and the
@@ -74,6 +88,21 @@ def disable_graphs():
         yield
     finally:
         _DISABLED -= 1
+
+
+@contextlib.contextmanager
+def scope():
+    """While open, the graphs that calls capture or replay are kept for
+    the scope's later calls (see the module's docstring). Nested scopes
+    are one: the outermost."""
+    global _SCOPE
+    outer = _SCOPE
+    if outer is None:
+        _SCOPE = next(_SCOPE_IDS)
+    try:
+        yield
+    finally:
+        _SCOPE = outer
 
 
 def graphs_enabled() -> bool:
@@ -154,6 +183,7 @@ class _Graph:
         self.out_spec, self.outputs = out_spec, outputs
         self.launches = launches
         self.seconds = seconds  # host time of the warm-up and the capture
+        self.scope: int | None = None  # the scope that used it last
 
 
 class Program:
@@ -161,8 +191,9 @@ class Program:
     docstring). ``graphs`` maps each captured key to its graph, least
     recently replayed first, at most ``max_graphs`` of them; ``captures``
     counts the captures made (``capture_s`` their host seconds),
-    ``replays`` the replays and ``evictions`` the graphs dropped to make
-    room."""
+    ``replays`` the replays, ``evictions`` the graphs dropped to make
+    room and ``overflows`` the calls run eagerly because the open scope
+    used every graph kept."""
 
     def __init__(self, fn, name: str):
         self.fn = fn
@@ -171,7 +202,7 @@ class Program:
         self.graphs: collections.OrderedDict[tuple, _Graph] = (
             collections.OrderedDict())
         self.max_graphs = MAX_GRAPHS
-        self.captures = self.replays = self.evictions = 0
+        self.captures = self.replays = self.evictions = self.overflows = 0
         self.capture_s = 0.0
         functools.update_wrapper(self, fn)
         _PROGRAMS.append(self)
@@ -202,12 +233,20 @@ class Program:
         entry = self.graphs.get(key)
         if entry is None:
             while len(self.graphs) >= self.max_graphs:
-                self.graphs.popitem(last=False)
+                # the least recently replayed graph the open scope has not
+                # used
+                stale = next((k for k, g in self.graphs.items()
+                              if _SCOPE is None or g.scope != _SCOPE), None)
+                if stale is None:
+                    self.overflows += 1
+                    return self.fn(*args, **kwargs)
+                del self.graphs[stale]
                 self.evictions += 1
             entry = self.graphs[key] = _capture(self, key, tensors, spec)
             self.captures += 1
             self.capture_s += entry.seconds
         self.graphs.move_to_end(key)
+        entry.scope = _SCOPE
         out = _replay(entry, tensors)
         self.replays += 1
         return out
@@ -223,31 +262,65 @@ def program(name: str):
 
 
 def capture_stats() -> dict:
-    """Over every program: the captures made so far and the host seconds
-    of their warm-ups and captures, the replays run, the graphs kept and
-    the graphs dropped to make room."""
+    """Over every program: the captures made so far (in all, and by
+    program name) and the host seconds of their warm-ups and captures,
+    the replays run, the graphs kept, the graphs dropped to make room and
+    the calls a full scope ran eagerly."""
+    by_program = collections.Counter()
+    for p in _PROGRAMS:
+        by_program[p.name] += p.captures
     return {"captures": sum(p.captures for p in _PROGRAMS),
+            "by_program": dict(by_program),
             "capture_s": sum(p.capture_s for p in _PROGRAMS),
             "replays": sum(p.replays for p in _PROGRAMS),
             "graphs": sum(len(p.graphs) for p in _PROGRAMS),
-            "evictions": sum(p.evictions for p in _PROGRAMS)}
+            "evictions": sum(p.evictions for p in _PROGRAMS),
+            "overflows": sum(p.overflows for p in _PROGRAMS)}
+
+
+def captures_since(before: dict) -> dict:
+    """What the programs did since ``before`` (a ``capture_stats()``):
+    the captures made, in all and by program (the programs that made
+    none left out), their host seconds, the replays, the graphs dropped
+    and the calls run eagerly by a full scope."""
+    now = capture_stats()
+    delta = {k: now[k] - before[k]
+             for k in ("captures", "capture_s", "replays", "evictions",
+                       "overflows")}
+    delta["by_program"] = {k: n - before["by_program"].get(k, 0)
+                           for k, n in now["by_program"].items()
+                           if n != before["by_program"].get(k, 0)}
+    return delta
 
 
 def graph_memory(device) -> dict:
     """The caching allocator's bytes on CUDA ``device`` (GiB): all it has
     reserved, and the part of it in the private pools that CUDA graphs
-    own (reserved, and allocated to tensors). A replay allocates nothing,
-    so ``max_memory_allocated`` does not see the pools' blocks that a
-    capture freed back into them; they stay reserved."""
+    own (reserved, and allocated to tensors), with the reserved part by
+    program and graph count (``(none)``: pools no kept graph owns, such
+    as a dropped graph's blocks that a live tensor still holds). A replay
+    allocates nothing, so ``max_memory_allocated`` does not see the
+    pools' blocks that a capture freed back into them; they stay
+    reserved."""
     index = torch.cuda._get_device_index(device, optional=True)
     pools = [s for s in torch.cuda.memory_snapshot()
              if s["device"] == index
              and tuple(s["segment_pool_id"]) != (0, 0)]
+    owner = {tuple(g.graph.pool()): p.name for p in _PROGRAMS
+             for g in p.graphs.values()}
+    by_program = collections.defaultdict(float)
+    for s in pools:
+        name = owner.get(tuple(s["segment_pool_id"]), "(none)")
+        by_program[name] += s["total_size"] / 2 ** 30
+    graphs = collections.Counter(owner.values())
     return {"reserved_gib": torch.cuda.memory_reserved(device) / 2 ** 30,
             "graph_pools_reserved_gib":
                 sum(s["total_size"] for s in pools) / 2 ** 30,
             "graph_pools_allocated_gib":
-                sum(s["allocated_size"] for s in pools) / 2 ** 30}
+                sum(s["allocated_size"] for s in pools) / 2 ** 30,
+            "graph_pools_by_program": {
+                k: {"reserved_gib": v, "graphs": graphs.get(k, 0)}
+                for k, v in sorted(by_program.items())}}
 
 
 def clear_graphs() -> None:

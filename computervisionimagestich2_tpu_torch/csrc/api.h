@@ -96,6 +96,13 @@ typedef struct {
 cudaError_t cvs_warp_image(const float* src, int src_h, int src_w,
                            int channels, CvsWarpParams params, int h_out,
                            int w_out, float* out, cudaStream_t stream);
+// B6 with its parameters in device memory: params points to 11 floats
+// on the card (c[0..8], ox, oy as in CvsWarpParams), the model is a launch
+// argument. The same kernel body and the same bits as cvs_warp_image.
+cudaError_t cvs_warp_image_dev(const float* src, int src_h, int src_w,
+                               int channels, const float* params, int model,
+                               int h_out, int w_out, float* out,
+                               cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -23,6 +23,12 @@
 //   travel in the kernel's parameter space (CvsWarpParams), so a call
 //   needs no device buffer, no host-to-device copy and no concatenation
 //   before it: the caller hands over host floats it already holds.
+// - Or from device memory (cvs_warp_image_dev): the 11 floats that a
+//   program computed on the card (the edge plan's backward model and
+//   canvas offsets), read once per thread through the read-only cache,
+//   with the model as a launch argument. Nothing is read back, so the
+//   warp can sit in a CUDA graph between the plan and the blend. The
+//   kernel body is the same; only the parameters' loads differ.
 // - A warp takes 128 consecutive canvas pixels (the canvas read as one
 //   flat row-major array), each lane four of them, 32 apart. The lane
 //   evaluates the model for its four pixels and issues the four
@@ -178,6 +184,47 @@ __global__ void __launch_bounds__(kThreads)
                                     w_out, out);
 }
 
+// The device-parameter entry's kernels: the same body, the parameters
+// loaded from device memory (CvsWarpParams's c[9], ox, oy as 11 floats)
+// instead of the parameter space, so a CUDA graph that computed the model
+// and offsets on the device replays the warp with their new values.
+template <int kModel>
+__device__ __forceinline__ CvsWarpParams load_params(
+    const float* __restrict__ params) {
+  CvsWarpParams p;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) p.c[i] = __ldg(params + i);
+  p.ox = __ldg(params + 9);
+  p.oy = __ldg(params + 10);
+  p.model = kModel;
+  return p;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    warp_bilinear_kernel_dev(const float* __restrict__ src, int src_h,
+                             int src_w, int channels,
+                             const float* __restrict__ params, int h_out,
+                             int w_out, float* __restrict__ out) {
+  const CvsWarpParams p = load_params<CVS_WARP_BILINEAR>(params);
+  warp_segment<CVS_WARP_BILINEAR>(src, src_h, src_w, channels, p, h_out,
+                                  w_out, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    warp_projective_kernel_dev(const float* __restrict__ src, int src_h,
+                               int src_w, int channels,
+                               const float* __restrict__ params, int h_out,
+                               int w_out, float* __restrict__ out) {
+  const CvsWarpParams p = load_params<CVS_WARP_PROJECTIVE>(params);
+  warp_segment<CVS_WARP_PROJECTIVE>(src, src_h, src_w, channels, p, h_out,
+                                    w_out, out);
+}
+
+unsigned grid_blocks(int h_out, int w_out) {
+  const long long segments = ((long long)h_out * w_out + kSeg - 1) / kSeg;
+  return (unsigned)((segments * 32 + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
 extern "C" cudaError_t cvs_warp_image(const float* src, int src_h, int src_w,
@@ -186,15 +233,31 @@ extern "C" cudaError_t cvs_warp_image(const float* src, int src_h, int src_w,
                                       cudaStream_t stream) {
   if (params.model != CVS_WARP_BILINEAR && params.model != CVS_WARP_PROJECTIVE)
     return cudaErrorInvalidValue;
-  const long long segments = ((long long)h_out * w_out + kSeg - 1) / kSeg;
-  if (segments == 0) return cudaSuccess;
-  const unsigned blocks =
-      (unsigned)((segments * 32 + kThreads - 1) / kThreads);
+  const unsigned blocks = grid_blocks(h_out, w_out);
+  if (blocks == 0) return cudaSuccess;
   if (params.model == CVS_WARP_BILINEAR)
     warp_bilinear_kernel<<<blocks, kThreads, 0, stream>>>(
         src, src_h, src_w, channels, params, h_out, w_out, out);
   else
     warp_projective_kernel<<<blocks, kThreads, 0, stream>>>(
+        src, src_h, src_w, channels, params, h_out, w_out, out);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t cvs_warp_image_dev(const float* src, int src_h,
+                                          int src_w, int channels,
+                                          const float* params, int model,
+                                          int h_out, int w_out, float* out,
+                                          cudaStream_t stream) {
+  if (model != CVS_WARP_BILINEAR && model != CVS_WARP_PROJECTIVE)
+    return cudaErrorInvalidValue;
+  const unsigned blocks = grid_blocks(h_out, w_out);
+  if (blocks == 0) return cudaSuccess;
+  if (model == CVS_WARP_BILINEAR)
+    warp_bilinear_kernel_dev<<<blocks, kThreads, 0, stream>>>(
+        src, src_h, src_w, channels, params, h_out, w_out, out);
+  else
+    warp_projective_kernel_dev<<<blocks, kThreads, 0, stream>>>(
         src, src_h, src_w, channels, params, h_out, w_out, out);
   return cudaGetLastError();
 }

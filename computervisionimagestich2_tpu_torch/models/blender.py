@@ -53,14 +53,26 @@ def resolve_dtype(dtype: str, h: int, w: int,
 
 
 def half_plane_mask(a: torch.Tensor, b: torch.Tensor,
-                    content_h: int | None = None) -> torch.Tensor:
+                    content_h: int | torch.Tensor | None = None
+                    ) -> torch.Tensor:
     """Vertical half-plane seam mask from the mid-row overlap centroid
     (ImageProcess.cpp:650-698). Returns [H, W] float32 {0, 1}: 1 where
-    canvas ``a`` wins at pyramid level 0."""
+    canvas ``a`` wins at pyramid level 0.
+
+    ``content_h``: the content's rows on a padded canvas, whose mid row
+    the seam reads; an int, or a tensor of one value on the canvases'
+    device (the plan's content height, truncated there): its mid row is
+    then picked with ``index_select``, clamped into the canvas as the JAX
+    package's traced index is, and nothing is read back."""
     h, w = a.shape[0], a.shape[1]
-    mid = (h if content_h is None else content_h) // 2
-    row_a = a[mid, :, 0]
-    row_b = b[mid, :, 0]
+    if isinstance(content_h, torch.Tensor):
+        mid = (content_h.reshape(1).to(torch.int64) // 2).clamp(0, h - 1)
+        row_a = a.index_select(0, mid)[0, :, 0]
+        row_b = b.index_select(0, mid)[0, :, 0]
+    else:
+        mid = (h if content_h is None else content_h) // 2
+        row_a = a[mid, :, 0]
+        row_b = b[mid, :, 0]
     xs = torch.arange(w, device=a.device, dtype=torch.float32)
     a_nz = row_a != 0
     both_nz = a_nz & (row_b != 0)
@@ -133,7 +145,7 @@ def apply_composite_gain(a: torch.Tensor, b: torch.Tensor, bcfg,
 
 def blend_two_images(a: torch.Tensor, b: torch.Tensor,
                      level_mode: str = "max", blur_sigma: float = 2.0,
-                     content_h: int | None = None,
+                     content_h: int | torch.Tensor | None = None,
                      dtype: str = "f32",
                      blur_impl: str = "fir") -> torch.Tensor:
     """Blend canvas a (the new warped image) over b (the previous result).
@@ -148,7 +160,7 @@ def blend_two_images(a: torch.Tensor, b: torch.Tensor,
 
 def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
                     level_mode: str = "max", blur_sigma: float = 2.0,
-                    content_h: int | None = None,
+                    content_h: int | torch.Tensor | None = None,
                     dtype: str = "f32",
                     blur_impl: str = "fir") -> torch.Tensor:
     """Seam-band multi-band blend: pyramid-blend only a [H, 4*band] window
@@ -156,8 +168,10 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
     central 2*band columns of the window are pasted back. Canvases
     narrower than 4*band take the full blend.
 
-    The window's start column comes from the device-side mask, so it is
-    read back once per call."""
+    The window's start column stays on the device (JAX's
+    ``dynamic_slice_in_dim`` / ``dynamic_update_slice_in_dim``): the
+    window is gathered with ``index_select`` and its centre pasted back
+    with ``index_copy_``, so nothing is read back."""
     h, w = a.shape[0], a.shape[1]
     wb = 4 * band
     if wb > w:
@@ -165,24 +179,29 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
                                 dtype, blur_impl)
     dtype = resolve_dtype(dtype, h, wb)
     mask0 = half_plane_mask(a, b, content_h)
+    # seam column: the half-plane row has one transition; count the prefix
+    # equal to its first value (either side's mask)
     mask_row = mask0[0]
-    t = int((mask_row == mask_row[0]).sum())
-    s = min(max(t - wb // 2, 0), w - wb)
+    t = (mask_row == mask_row[0]).sum()
+    s = torch.clamp(t - wb // 2, 0, w - wb)
+    cols = torch.arange(wb, device=a.device) + s
     stacked = torch.cat([a, b, mask0[..., None]], dim=-1)
-    win = stacked[:, s:s + wb]
+    win = stacked.index_select(1, cols)
     levels = max(1, min(n_levels(h, wb, level_mode),
                         int(math.log2(max(band // 8, 2)))))
     blended_win = blend_stacked(win, levels, blur_sigma, blur_impl, dtype)
     out = torch.where(mask0[..., None] == 1.0, a, b)
-    out[:, s + band:s + 3 * band] = blended_win[:, band:3 * band]
-    return out
+    return out.index_copy_(1, cols[band:3 * band],
+                           blended_win[:, band:3 * band])
 
 
 def blend_edge(a: torch.Tensor, b: torch.Tensor, bcfg,
-               content_h: int | None = None) -> torch.Tensor:
+               content_h: int | torch.Tensor | None = None) -> torch.Tensor:
     """Config-driven blend: the reference's full-canvas pyramid, or the
     seam-band window (explicit ``seam_band`` or the area gate), with the
-    "auto" precision policy resolved against ``bf16_auto_area``."""
+    "auto" precision policy resolved against ``bf16_auto_area``. The
+    gates read the canvas's shape; ``content_h`` (``half_plane_mask``)
+    only moves the seam row."""
     thr = bcfg.bf16_auto_area
     band = bcfg.seam_band
     h, w = int(a.shape[0]), int(a.shape[1])

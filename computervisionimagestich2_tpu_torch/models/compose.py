@@ -8,7 +8,8 @@
   (``exact_canvas=False`` and the streaming canvas).
 - ``composite``   <- warpingImageByHomography + movingImageByOffset
   (ImageProcess.cpp:596-620): the inverse warp (kernel B6 on CUDA, either
-  model) and the offset copy onto one canvas size.
+  model) and the offset copy onto one canvas size, from host floats or
+  device tensors.
 """
 from __future__ import annotations
 
@@ -68,12 +69,16 @@ def canvas_plan(forward_coeffs: np.ndarray, src_shape: tuple[int, int],
 
 
 def composite(src_img: torch.Tensor, result_img: torch.Tensor,
-              backward_coeffs, min_x: float, min_y: float,
+              backward_coeffs, min_x, min_y,
               canvas_hw: tuple[int, int], model: str = "bilinear"):
     """The two canvases of one stitch step (ImageProcess.cpp:218-224):
-    a = src_img inverse-warped through backward_coeffs (host floats, as
-    the stitch paths hold them, or a tensor) at offset (min_x, min_y);
-    b = the previous result shifted by the truncated offsets."""
+    a = src_img inverse-warped through backward_coeffs at offset (min_x,
+    min_y); b = the previous result shifted by the truncated offsets. The
+    model and offsets are host floats, or device tensors (the plan's
+    rows, as the programs hand them over), which pass through to the warp
+    and the shift, so nothing is read back."""
     a = warp_image(src_img, backward_coeffs, min_x, min_y, canvas_hw, model)
-    b = shift_image(result_img, int(min_x), int(min_y), canvas_hw)
+    if not isinstance(min_x, torch.Tensor):
+        min_x, min_y = int(min_x), int(min_y)
+    b = shift_image(result_img, min_x, min_y, canvas_hw)
     return a, b

@@ -6,7 +6,8 @@ direction swap on the uncapped counts (ImageProcess.cpp:185-198), forward
 and backward RANSAC, the canvas bounds, and the feature-coordinate
 updates. ``plan_edges`` uploads the stitch order as an int32 [E, 3]
 tensor, runs ``plan_rows`` on it and reads the [E, 23] plan back to the
-host once. ``plan_rows`` is the JAX package's ``lax.scan`` over the edges
+host once (``plan_edges_with_rows`` also keeps the device rows).
+``plan_rows`` is the JAX package's ``lax.scan`` over the edges
 as a program (``core/programs.py``: one CUDA graph per key on the card):
 it indexes the features with the edge tensor on the device and folds the
 edge ids into the RANSAC keys there, so its key is the JAX program's
@@ -129,10 +130,22 @@ def plan_edges(feats_stacked: Features, edges: list[tuple[int, int, int]],
     """Register every stitch edge and return the [E, 23] plan on the host
     (``plan_rows``'s rows). edges: (src, dst, pre) triples in BFS order,
     uploaded as one int32 [E, 3] tensor."""
+    return plan_edges_with_rows(feats_stacked, edges, img_hw, start_hw,
+                                cfg)[0]
+
+
+def plan_edges_with_rows(feats_stacked: Features,
+                         edges: list[tuple[int, int, int]],
+                         img_hw: tuple[int, int], start_hw: tuple[int, int],
+                         cfg: StitchConfig) -> tuple[np.ndarray, torch.Tensor]:
+    """``plan_edges``, with the plan's rows on the device beside their one
+    readback: (plan [E, 23] numpy, the same rows as a tensor on the
+    features' device), for callers that hand the rows on to programs."""
     edges_t = torch.as_tensor(np.asarray(edges, dtype=np.int32).reshape(-1, 3),
                               device=feats_stacked.desc.device)
-    return plan_rows(feats_stacked, edges_t, tuple(img_hw), tuple(start_hw),
-                     cfg).cpu().numpy()
+    rows = plan_rows(feats_stacked, edges_t, tuple(img_hw), tuple(start_hw),
+                     cfg)
+    return rows.cpu().numpy(), rows
 
 
 @program("plan_edges")

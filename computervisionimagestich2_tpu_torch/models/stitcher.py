@@ -18,15 +18,19 @@ of device stages:
               edge. Incremental mode (``planned=False``, or mixed shapes)
               keeps the reference's per-edge loop: register, read the two
               models and the overflow back in one copy, plan the canvas on
-              the host, composite, blend. Either way B6 gets the backward
-              model as host floats, by value.
+              the host, composite, blend. Either way the composite + blend
+              of an edge is a program (one CUDA graph per canvas shape on
+              the card) whose B6 reads the backward model and the offsets
+              from device memory: the plan's rows, or the edge's model and
+              its offsets uploaded in one copy.
               ``exact_canvas=False`` composites and blends on a canvas
               padded up a geometric size grid and crops back.
               With a ``mesh`` (``parallel/mesh.py``) the planned loop
               composites and blends each qualifying edge row-sharded over
               the mesh (``parallel/blend.py``: B6 once per stripe), as
               the JAX package's mesh mode does.
-  tail:       histogram equalization + YCbCr luma mix
+  tail:       histogram equalization + YCbCr luma mix (a program), then
+              the u8 readback
 
 ``artifact_dir`` dumps the features, the canvas and a manifest;
 ``stitch(..., resume=True)`` reloads the features instead of running SIFT.
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, StitchConfig, check_supported
+from ..core.programs import program, scope
 from ..core.types import Features
 from ..device import resolve_device
 from ..ops.warp import cylindrical_project, trunc_u8
@@ -55,8 +60,8 @@ from . import compose
 from .blender import apply_composite_gain, blend_edge, n_levels
 from .equalization import equalize_and_mix
 from .matcher import match_features_bidir
-from .registration import (all_pairs_match_counts, plan_edges, register_edge,
-                           update_features_by_offset,
+from .registration import (all_pairs_match_counts, plan_edges_with_rows,
+                           register_edge, update_features_by_offset,
                            update_features_by_warp)
 # re-exported for callers that reach SIFT through this module; ``prepare``
 # runs it inlined in the features program
@@ -64,15 +69,22 @@ from .sift import sift_extract_stats  # noqa: F401
 from .transfer import color_transfer
 
 
+@program("composite_and_blend")
 def _composite_and_blend(proj_dst: torch.Tensor, result: torch.Tensor,
-                         bwd: np.ndarray, min_x: float, min_y: float,
+                         bwd: torch.Tensor, offsets: torch.Tensor,
                          comp_hw: tuple[int, int], out_hw: tuple[int, int],
                          cfg: StitchConfig) -> torch.Tensor:
-    """One edge: inverse warp (kernel B6 on CUDA, the backward model
-    ``bwd`` as host floats) + offset copy + (area-gated) gain + Laplacian
-    blend + u8 truncation + crop."""
-    a, b = compose.composite(proj_dst, result, bwd, min_x, min_y, comp_hw,
-                             cfg.warp_model)
+    """One edge (the JAX package's per-edge program, its
+    ``models/stitcher.py:75``): inverse warp (kernel B6 on CUDA) + offset
+    copy + (area-gated) gain + Laplacian blend + u8 truncation + crop.
+    ``bwd``: the backward model (8 or 9 float32) and ``offsets``: float32
+    [2] (min_x, min_y), tensors on the canvases' device (the plan's rows),
+    which the warp reads there. A program (``core/programs.py``): on the
+    card one CUDA graph per key, the canvases' and the model's shapes,
+    ``comp_hw``, ``out_hw`` and ``cfg``, so two edges of one canvas shape
+    replay one graph whatever their models and offsets."""
+    a, b = compose.composite(proj_dst, result, bwd, offsets[0], offsets[1],
+                             comp_hw, cfg.warp_model)
     a = apply_composite_gain(a, b, cfg.blend, comp_hw[0], comp_hw[1])
     blended = blend_edge(a, b, cfg.blend, out_hw[0])
     return trunc_u8(blended[:out_hw[0], :out_hw[1]])
@@ -338,7 +350,7 @@ class Stitcher:
         # [forward, backward, overflow]: 8 + 8 + 1 or 9 + 9 + 1 floats
         n_coef = forward.shape[0]
         host = torch.cat([forward, backward, ovf.float()[None]]).cpu().numpy()
-        fwd_host, bwd_host = host[:n_coef], host[n_coef:2 * n_coef]
+        fwd_host = host[:n_coef]
         dropped = int(host[2 * n_coef])
         if dropped > 0:
             obs.warn("match_overflow", src=src_i, dst=dst_i,
@@ -354,8 +366,11 @@ class Stitcher:
             fwd_host, src_hw, tuple(result.shape[:2]), cfg.warp_model)
         self._validate_canvas(new_h, new_w, src_hw,
                               f"edge ({src_i}, {dst_i})")
+        # the model stays on the device; the offsets go up in one copy
+        offsets = torch.tensor([min_x, min_y], dtype=torch.float32,
+                               device=self.device)
         result = _composite_and_blend(
-            projected[dst_i], result, bwd_host, min_x, min_y,
+            projected[dst_i], result, backward, offsets,
             self._comp_hw(new_h, new_w), (new_h, new_w), cfg)
         feats[dst_i] = update_features_by_warp(feats[dst_i], forward,
                                                min_x, min_y, cfg.warp_model)
@@ -406,12 +421,15 @@ class Stitcher:
     def _stitch_planned(self, result: torch.Tensor, projected,
                         edge_seq) -> torch.Tensor:
         """Register every edge (one plan readback), then composite and
-        blend edge by edge."""
+        blend edge by edge: the program of each edge takes its model and
+        offsets from the plan's device rows; the host copy gives the
+        canvas shapes, the validation, the mesh branch's arguments and
+        the overflow warning."""
         cfg = self.config
         img_hw = tuple(projected[edge_seq[0][1]].shape[:2])
         start_hw = tuple(result.shape[:2])
-        plan = plan_edges(self._matching_feats(), edge_seq, img_hw,
-                          start_hw, cfg)
+        plan, rows = plan_edges_with_rows(self._matching_feats(), edge_seq,
+                                          img_hw, start_hw, cfg)
         self._validate_plan(plan, img_hw, len(edge_seq))
         n_coef = 9 if cfg.warp_model == "projective" else 8
         for k, (src_i, dst_i, _pre_i) in enumerate(edge_seq):
@@ -420,16 +438,15 @@ class Stitcher:
                 # transfers after getImgPair)
                 projected[dst_i] = color_transfer(projected[dst_i],
                                                   projected[src_i])
-            bwd = plan[k, 9:9 + n_coef]
-            min_x, min_y = float(plan[k, 18]), float(plan[k, 19])
             new_w, new_h = int(plan[k, 20]), int(plan[k, 21])
             comp_hw = self._comp_hw(new_h, new_w)
             if self.mesh is not None and self._mesh_edge_ok(
                     self._mesh_comp_hw(comp_hw)):
                 comp_hw = self._mesh_comp_hw(comp_hw)
+                min_x, min_y = float(plan[k, 18]), float(plan[k, 19])
                 blended = sharded_composite_and_blend(
-                    projected[dst_i], result, bwd, min_x, min_y, comp_hw,
-                    self.mesh, self.mesh_axis, cfg.warp_model,
+                    projected[dst_i], result, plan[k, 9:9 + n_coef], min_x,
+                    min_y, comp_hw, self.mesh, self.mesh_axis, cfg.warp_model,
                     cfg.blend.level_mode, cfg.blend.blur_sigma,
                     content_h=new_h, dtype=cfg.blend.dtype)
                 # the stripes gathered on self.device: the next edge reads
@@ -438,8 +455,8 @@ class Stitcher:
                     gather_rows(blended, self.device)[:new_h, :new_w])
             else:
                 result = _composite_and_blend(
-                    projected[dst_i], result, bwd, min_x, min_y, comp_hw,
-                    (new_h, new_w), cfg)
+                    projected[dst_i], result, rows[k, 9:9 + n_coef],
+                    rows[k, 18:20], comp_hw, (new_h, new_w), cfg)
             obs.log("edge", src=src_i, dst=dst_i, canvas=(new_h, new_w))
             if plan[k, 22] > 0:
                 obs.warn("match_overflow", src=src_i, dst=dst_i,
@@ -469,11 +486,14 @@ class Stitcher:
         return projected, feats
 
     # ----------------------------------------------------------------- main
+    @scope()
     def stitch(self, images: Sequence[np.ndarray],
                resume: bool = False) -> np.ndarray:
         """Full pipeline. Returns the u8 RGB panorama [H, W, 3]. With
         ``resume=True`` (and ``artifact_dir``), SIFT is skipped when
-        ``features.npz`` exists there."""
+        ``features.npz`` exists there. One program scope
+        (``core/programs.py::scope``): the graphs of a stitch's own keys
+        are not dropped for one another."""
         cfg = self.config
         resumed = bool(resume and self.artifact_dir and os.path.exists(
             f"{self.artifact_dir}/features.npz"))

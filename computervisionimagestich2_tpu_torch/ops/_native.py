@@ -18,7 +18,8 @@ move pixels.
 it launches its kernel and nowhere else, so a run can show that it went
 through the kernels (``reset_launch_counts`` / ``launch_counts``). B6
 counts its two branches apart: ``warp_image`` (bilinear) and
-``warp_image_projective``.
+``warp_image_projective``, each over both of its entries (parameters by
+value, or in device memory).
 """
 from __future__ import annotations
 
@@ -79,6 +80,9 @@ _SIGNATURES = {
     # (src, src_h, src_w, channels, params by value, h_out, w_out, out,
     #  stream)
     "cvs_warp_image": (_P, _I, _I, _I, WarpParams, _I, _I, _P, _P),
+    # (src, src_h, src_w, channels, params (11 floats on the card), model,
+    #  h_out, w_out, out, stream)
+    "cvs_warp_image_dev": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P),
 }
 
 _LIB = None

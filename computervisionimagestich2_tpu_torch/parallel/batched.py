@@ -6,7 +6,8 @@ The JAX package vmaps one program over the batch and, since its Pallas
 kernels do not vmap, pins them off there (``_nopallas``). Here the batch is
 a loop over its members on one device: on the card every member runs the
 kernels of its path (B1-B3 for the features, B4 and B6 for a panorama, B7
-for a registration pair), on the CPU their plain versions, and a batch
+for a registration pair), a panorama as one CUDA graph
+(``_stitch_one_fixed``), on the CPU their plain versions, and a batch
 equals its members run one at a time, bit for bit.
 
 ``shard_batch`` splits a batch's axis 0 over a mesh's ``data`` devices
@@ -22,16 +23,16 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, StitchConfig, check_supported
-from ..core.programs import program
+from ..core.programs import const, program
 from ..core.types import Features
 from ..device import resolve_device
 from ..models import compose
 from ..models.blender import apply_composite_gain, blend_edge
 from ..models.matcher import match_features
 from ..models.ransac import ransac_warp
-from ..models.registration import plan_edges
+from ..models.registration import plan_rows
 from ..models.sift import sift_extract, sift_extract_stats
-from ..models.stitcher import bfs_edge_seq, live_prefix
+from ..models.stitcher import bfs_edge_seq
 from ..ops import rng
 from ..ops.color import to_gray
 from ..ops.warp import cylindrical_project, trunc_u8
@@ -159,6 +160,7 @@ def batched_project_and_extract(images, cfg: StitchConfig = DEFAULT_CONFIG,
     return feats, proj
 
 
+@program("stitch_one_fixed")
 def _stitch_one_fixed(images: torch.Tensor, cfg: StitchConfig,
                       canvas_hw: tuple[int, int],
                       edge_seq: tuple[tuple[int, int, int], ...]):
@@ -167,25 +169,31 @@ def _stitch_one_fixed(images: torch.Tensor, cfg: StitchConfig,
     and blends on the full canvas, the content extent rides in the plan
     (its per-edge min_x, min_y, new_w, new_h feed the warp offsets and the
     blend's content rows). The plan of every edge is registered first
-    (``plan_edges``: B4 per edge on the card) and read back once, since B6
-    takes its coefficients by value. Enhancement is the caller's step.
+    (``plan_rows``: B4 per edge on the card, on the features' whole
+    capacity, whose dead slots change nothing) and stays on the device:
+    B6 reads each edge's model and offsets there, the shift and the seam
+    row take them as tensors. Enhancement is the caller's step.
 
-    Returns (canvas [Hc, Wc, 3] u8-valued float32, plan [E, 23] numpy)."""
+    A program (JAX ``parallel/batched.py:124``): on the card one CUDA
+    graph per key (the frames' shape, ``cfg``, ``canvas_hw`` and
+    ``edge_seq``), with the features program and the plan inlined into
+    it. Returns (canvas [Hc, Wc, 3] u8-valued float32, plan [E, 23]
+    float32 on the device)."""
     feats, proj, _ = _project_and_extract(images, cfg)
     img_hw = (int(proj.shape[1]), int(proj.shape[2]))
-    plan = plan_edges(live_prefix(feats), list(edge_seq), img_hw, img_hw,
-                      cfg)
+    edges = const(edge_seq, torch.int32, proj.device)
+    plan = plan_rows(feats, edges, img_hw, img_hw, cfg)
     n_coef = 9 if cfg.warp_model == "projective" else 8
     hc, wc = canvas_hw
     start = edge_seq[0][0]
     result = proj.new_zeros((hc, wc, 3))
     result[:img_hw[0], :img_hw[1]] = proj[start]
     for e, (_src_i, dst_i, _pre_i) in enumerate(edge_seq):
-        min_x, min_y = float(plan[e, 18]), float(plan[e, 19])
         a, b = compose.composite(proj[dst_i], result, plan[e, 9:9 + n_coef],
-                                 min_x, min_y, canvas_hw, cfg.warp_model)
+                                 plan[e, 18], plan[e, 19], canvas_hw,
+                                 cfg.warp_model)
         a = apply_composite_gain(a, b, cfg.blend, hc, wc)
-        result = trunc_u8(blend_edge(a, b, cfg.blend, int(plan[e, 21])))
+        result = trunc_u8(blend_edge(a, b, cfg.blend, plan[e, 21]))
     return result, plan
 
 
@@ -236,7 +244,8 @@ def batched_stitch_chain(images, cfg: StitchConfig = DEFAULT_CONFIG,
                          f"({h}, {w})")
     outs = [_stitch_one_fixed(pano, cfg, canvas_hw, edge_seq)
             for pano in batch]
-    plans = np.stack([p for _, p in outs])
+    # one readback of every member's plan, after all of them are queued
+    plans = torch.stack([to_device(p, dev) for _, p in outs]).cpu().numpy()
     final_w, final_h = plans[:, -1, 20].max(), plans[:, -1, 21].max()
     if final_w > canvas_hw[1] or final_h > canvas_hw[0]:
         obs.warn("batched_canvas_overflow",

@@ -57,16 +57,18 @@ much each end-to-end median may grow before a change counts as a
 regression (``REGRESSION_BOUNDS``). The checks run outside the timed
 window.
 
-The main path runs as users get it: the features program and the edge
-plan as CUDA graphs (``core/programs.py``), captured in the cold run
-(``setup.graphs``: the captures and their host seconds, inside
-``cold_ms``); ``--eager`` runs every program eagerly instead, the port
-before its graphs, for a comparison in one call. The profile counts what
+The main path runs as users get it: the features program, the edge plan,
+each edge's composite + blend and the enhance tail as CUDA graphs (a
+batch's member as one graph: ``_stitch_one_fixed``; ``core/programs.py``),
+captured in the cold run (``setup.graphs``: the captures and their host
+seconds, inside ``cold_ms``); ``--eager`` runs every program eagerly
+instead, the port before its graphs, for a comparison in one call. The profile counts what
 the replays ran: the kernels of a replayed graph are device events of the
 trace, named as when launched one by one, so ``profile.kernels`` and the
 busy time hold them; ``graph_launches``, ``graph_device_events`` and
 ``memcpy_htod_in_replays`` count the replays, their device events and the
-host-to-device copies inside them. ``launches`` are the wrappers'
+host-to-device copies inside them; ``graph_launch_host_ms`` holds each
+launch's host time beside its device events. ``launches`` are the wrappers'
 counters, which every replay advances by its graph's launches; on the
 card ``checks.launches_vs_trace`` holds the counters of each traced run
 against the device kernels its trace holds (``probes.launches_vs_trace``).
@@ -209,19 +211,20 @@ class _SpanTimer(obs.StageTimer):
 
 @contextlib.contextmanager
 def _recorded_plan():
-    """While open, keep the arguments and the output of the stitcher's
-    ``plan_edges`` call."""
-    rec, plan_fn = {}, stm.plan_edges
+    """While open, keep the arguments and the host plan of the stitcher's
+    ``plan_edges_with_rows`` call."""
+    rec, plan_fn = {}, stm.plan_edges_with_rows
 
     def plan(*a):
-        rec["args"], rec["plan"] = a, plan_fn(*a)
-        return rec["plan"]
+        rec["args"] = a
+        rec["plan"], rows = plan_fn(*a)
+        return rec["plan"], rows
 
-    stm.plan_edges = plan
+    stm.plan_edges_with_rows = plan
     try:
         yield rec
     finally:
-        stm.plan_edges = plan_fn
+        stm.plan_edges_with_rows = plan_fn
 
 
 def _edge_inputs(args) -> list:
@@ -338,6 +341,7 @@ def _profile(fn, off, device: torch.device) -> dict | None:
             "graph_launches": p["graph_launches"],
             "graph_device_events": p["graph_device_events"],
             "memcpy_htod_in_replays": p["memcpy_htod_in_replays"],
+            "graph_launch_host_ms": p["graph_launch_host_ms"],
             "kernels": {name: {"id": KERNELS[name][0],
                                "device_ms": k["ms"],
                                "device_launches": k["device_launches"],
@@ -488,12 +492,12 @@ def run_panorama(cell: Cell, device: torch.device, runs: int,
 
 def _graph_stats(before: dict) -> dict:
     """The CUDA graphs of a cell's cold run: whether programs run as
-    graphs (``--eager`` says not), the captures the run made and the host
-    seconds of their warm-ups and captures (both inside ``cold_ms``)."""
-    now = programs.capture_stats()
+    graphs (``--eager`` says not), the captures the run made (in all and
+    by program) and the host seconds of their warm-ups and captures (both
+    inside ``cold_ms``)."""
+    delta = programs.captures_since(before)
     return {"enabled": programs.graphs_enabled(),
-            "captures": now["captures"] - before["captures"],
-            "capture_s": now["capture_s"] - before["capture_s"]}
+            **{k: delta[k] for k in ("captures", "by_program", "capture_s")}}
 
 
 def _correct(checks: dict) -> bool:
@@ -575,7 +579,7 @@ def run_batch(cell: Cell, device: torch.device, runs: int,
             torch.as_tensor(pans[i], device=device), cfg, canvas, seq)
         equal.append(bool(np.array_equal(
             one.to(torch.uint8).cpu().numpy(), out_cold[i])
-            and np.array_equal(plan, plans[i])))
+            and np.array_equal(plan.cpu().numpy(), plans[i])))
     content = plans[:, -1, 20:22].astype(int).tolist()  # (w, h) a member
     checks = {
         "members_equal_alone": {"ok": all(equal), "per_member": equal},

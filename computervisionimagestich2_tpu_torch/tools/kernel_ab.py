@@ -35,8 +35,10 @@ one NVIDIA GPU and ``nvcc``. Steps:
    against a second run (equal bits), with a hash of B1's (coords, valid,
    n_total), B6's canvases and B7's (d1, d2, i1) outputs (B6 takes the
    backward model as host floats where the tree's ``warp_image`` has a
-   ``model`` parameter, as this tree's stitch paths pass it, and as a
-   device tensor in an earlier tree); then, without ``--check``, the time of
+   ``model`` parameter, and as a device tensor in an earlier tree, and
+   the offsets as host floats: its by-value entry, which every tree has;
+   this tree's programs take the device-parameter entry); then, without
+   ``--check``, the time of
    all recorded calls of a kernel in a row, mean of 10 passes after one
    warm-up: the device time of the kernels alone from ``torch.profiler``
    (``device_ms_*``: per panorama for B1, the walks, B5 and B6, per edge
@@ -166,6 +168,15 @@ def _record_inputs(path: Path) -> dict:
             return torch.from_numpy(np.array(a, np.float32))
         return [to_cpu(x) for x in a] if isinstance(a, list) else a
 
+    def record(name, args):
+        """A call's arguments on the host; B6's offsets as host floats,
+        which every tree's ``warp_image`` takes (this tree's programs hand
+        it device tensors)."""
+        args = tuple(to_cpu(a) for a in args)
+        if name.startswith("warp_image"):
+            args = (*args[:2], *(float(v) for v in args[2:4]), *args[4:])
+        return args
+
     mods = {"detect": detect, "sift_walks": sift_walks, "distance": distance,
             "compose": compose}
     calls = {name: [] for name in SITES}
@@ -174,7 +185,7 @@ def _record_inputs(path: Path) -> dict:
         fn = orig[name] = getattr(mods[mod], attr)
 
         def wrapped(*args, _fn=fn, _name=name, **kw):
-            calls[_name].append(tuple(to_cpu(a) for a in args))
+            calls[_name].append(record(_name, args))
             return _fn(*args, **kw)
         setattr(mods[mod], attr, wrapped)
     images = scenes.scrambled(scenes.crops(512, 384, 224, 2, 0))
@@ -200,7 +211,7 @@ def _record_inputs(path: Path) -> dict:
     warp_fn = compose.warp_image
 
     def warp_rec(*args):
-        warps.append(tuple(to_cpu(a) for a in args))
+        warps.append(record("warp_image", args))
         return warp_fn(*args)
     compose.warp_image = warp_rec
     try:

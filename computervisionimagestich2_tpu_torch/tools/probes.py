@@ -40,7 +40,9 @@ KERNELS = {
     "l1_two_nearest": (
         "B7", "cuda", CSRC + "l1_2nn.cu", TPU_OPS + "pallas_distance.py:283"),
 }
-# the device kernels each wrapper launches (substrings of their names)
+# the device kernels each wrapper launches (substrings of their names;
+# B6's cover both of its entries, ``warp_bilinear_kernel`` and
+# ``warp_bilinear_kernel_dev``, one kernel a launch either way)
 DEVICE_KERNELS = {
     "detect_compact": ("detect_octaves_kernel",),
     "sift_orientation_hist": ("orientation_hist_kernel",),
@@ -157,7 +159,7 @@ def last_edge_vs_cpu(st, images) -> dict:
     secs = time.perf_counter() - t
     card = u8(last["out"])
     shape_diff, mad = canvas_diff(card, u8(out_cpu))
-    return {"edge_canvas": list(card.shape), "comp_hw": list(args[5]),
+    return {"edge_canvas": list(card.shape), "comp_hw": list(args[4]),
             "cpu_s": secs, "shape_diff": shape_diff, "mad_vs_cpu": mad}
 
 
@@ -264,26 +266,34 @@ def launches_vs_trace(kernels: dict) -> dict:
 def graph_replays(events: list, dev: list) -> dict:
     """The CUDA graph replays of a trace: the host's graph launches, the
     device events that carry a launch's correlation id (the graph's nodes,
-    as the trace lists them), and the host-to-device copies that ran
-    inside a replay, by correlation or between a replay's first and last
-    node."""
-    launches = [e for e in events if e.get("cat") in HOST_CATS
-                and "GraphLaunch" in e["name"]]
+    as the trace lists them), the host-to-device copies that ran inside a
+    replay, by correlation or between a replay's first and last node, and
+    per launch in trace order its host time (ms) beside its device events
+    (``graph_launch_host_ms``: how the launch's cost grows with its
+    nodes)."""
+    launches = sorted((e for e in events if e.get("cat") in HOST_CATS
+                       and "GraphLaunch" in e["name"]),
+                      key=lambda e: e["ts"])
     corr = {e.get("args", {}).get("correlation") for e in launches} - {None}
     windows: dict = {}
+    nodes: dict = {}
     for e in dev:
         c = e.get("args", {}).get("correlation")
         if c in corr:
             lo, hi = windows.get(c, (e["ts"], e["ts"] + e["dur"]))
             windows[c] = (min(lo, e["ts"]), max(hi, e["ts"] + e["dur"]))
+            nodes[c] = nodes.get(c, 0) + 1
     htod = [e for e in dev if "HtoD" in e["name"]]
     inside = [e for e in htod
               if e.get("args", {}).get("correlation") in corr
               or any(lo <= e["ts"] < hi for lo, hi in windows.values())]
     return {"graph_launches": len(launches),
-            "graph_device_events": sum(
-                1 for e in dev if e.get("args", {}).get("correlation") in corr),
-            "memcpy_htod_in_replays": len(inside)}
+            "graph_device_events": sum(nodes.values()),
+            "memcpy_htod_in_replays": len(inside),
+            "graph_launch_host_ms": [
+                [e["dur"] / 1e3,
+                 nodes.get(e.get("args", {}).get("correlation"), 0)]
+                for e in launches]}
 
 
 def summarize(events: list, wall: float, gaps: int = 0) -> dict:

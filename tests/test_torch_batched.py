@@ -162,6 +162,40 @@ def test_stitch_one_fixed_matches_jax():
     assert plans[0, -1, 20] > 300  # all three crops on the canvas
 
 
+@pytest.mark.parametrize("scene", ["panoramas_0", "panoramas_24",
+                                   "jax_scene"])
+def test_plan_on_full_capacity_equals_live_prefix(scene):
+    """``_stitch_one_fixed`` plans on the features' whole capacity (no
+    readback of the live counts inside its program): the [E, 23] plan
+    equals, bit for bit, the plan on ``live_prefix`` of the features, for
+    the batched scenes of this file at a capacity (1024) that the live
+    prefix trims to 512."""
+    from computervisionimagestich2_tpu_torch.models.registration import (
+        plan_rows)
+    from computervisionimagestich2_tpu_torch.models.stitcher import (
+        live_prefix)
+    if scene == "jax_scene":
+        full = make_scene(np.random.default_rng(0), h=160, w=320)
+        images = np.stack([full[:, s:s + 160] for s in (0, 80, 160)])
+    else:
+        images = _panoramas()[0 if scene == "panoramas_0" else 1]
+    cfg = dataclasses.replace(
+        tconfig.DEFAULT_CONFIG, sift=tconfig.SiftConfig(
+            n_octaves=2, max_keypoints_per_octave=512, max_keypoints=1024),
+        match=tconfig.MatchConfig(max_matches=512),
+        ransac=tconfig.RansacConfig(n_hypotheses=64))
+    feats, proj, _ = batched._project_and_extract(T(images), cfg)
+    trimmed = live_prefix(feats)
+    assert feats.desc.shape[1] == 1024 and trimmed.desc.shape[1] == 512
+    img_hw = tuple(proj.shape[1:3])
+    edges = T(np.array(batched.chain_edge_seq(3), np.int32))
+    full_plan = plan_rows(feats, edges, img_hw, img_hw, cfg)
+    live_plan = plan_rows(trimmed, edges, img_hw, img_hw, cfg)
+    np.testing.assert_array_equal(full_plan.numpy().view(np.uint32),
+                                  live_plan.numpy().view(np.uint32))
+    assert np.isfinite(full_plan.numpy()).all()
+
+
 def test_small_canvas_warns_batched_canvas_overflow(capfd):
     """A canvas narrower than the panorama's content extent: the stitch
     runs and prints the batched_canvas_overflow warning with the extent it

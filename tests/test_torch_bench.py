@@ -165,13 +165,14 @@ def test_bench_cpu_catches_faults(cpu_run, monkeypatch, capsys):
     give the same features: they are replayed from the clean run, which
     saves SIFT's plain version its seconds."""
     sift = cpu_run[3]
-    plan_fn, blend_fn = stm.plan_edges, stm._composite_and_blend
+    plan_fn, blend_fn = stm.plan_edges_with_rows, stm._composite_and_blend
     blends = []
 
     def plan(*a):
-        out = plan_fn(*a).copy()
+        out, rows = plan_fn(*a)
+        out = out.copy()
         out[0, 3] += 0.5  # the forward model's x translation
-        return out
+        return out, rows
 
     def blend(*a):
         blends.append(a)
@@ -180,7 +181,7 @@ def test_bench_cpu_catches_faults(cpu_run, monkeypatch, capsys):
 
     monkeypatch.setattr(stm, "sift_extract_stats",
                         lambda gray, *a: sift[_digest(gray)])
-    monkeypatch.setattr(stm, "plan_edges", plan)
+    monkeypatch.setattr(stm, "plan_edges_with_rows", plan)
     monkeypatch.setattr(stm, "_composite_and_blend", blend)
     rc = bench.main(ARGV)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -373,8 +373,9 @@ def test_kernel_b6_matches_plain(cuda_device, case):
     """B6 exact against its plain version for both models: canvas widths
     that are and are not multiples of 4 (the vector stores and the scalar
     tail), one and four channels, a 1 x 1 canvas and a horizon crossing the
-    canvas; the coefficients by value (host floats) and as a tensor give
-    the same canvas, and each call counts one launch of its branch."""
+    canvas; the coefficients by value (host floats), as a tensor, and with
+    the offsets as tensors too (the device-parameter entry) give the same
+    canvas, and each call counts one launch of its branch."""
     model, coeffs, (h, w, c), canvas, (ox, oy) = B6_CASES[case]
     rng = np.random.default_rng(15)
     src = T(rng.integers(0, 256, (h, w, c)).astype(np.float32))
@@ -386,10 +387,14 @@ def test_kernel_b6_matches_plain(cuda_device, case):
     by_value = twarp.warp_image(g, coeffs, ox, oy, canvas, model)
     as_tensor = twarp.warp_image(g, T(np.float32(coeffs)).to(cuda_device),
                                  ox, oy, canvas, model)
+    on_device = twarp.warp_image(
+        g, T(np.float32(coeffs)).to(cuda_device),
+        *(T(np.float32(v)).to(cuda_device) for v in (ox, oy)), canvas, model)
     torch.cuda.synchronize()
-    assert _native.launch_counts()[name] == 2
+    assert _native.launch_counts()[name] == 3
     assert torch.equal(by_value.cpu(), ref)
     assert torch.equal(as_tensor.cpu(), ref)
+    assert torch.equal(on_device.cpu(), ref)
     if not case.endswith("1x1"):
         assert (ref != 0).any() and (ref == 0).any()
 
@@ -812,7 +817,7 @@ def test_batched_stitch_on_card_equals_one_at_a_time(cuda_device):
         one, plan = batched._stitch_one_fixed(
             torch.as_tensor(pans[b], device=cuda_device), cfg, canvas, seq)
         assert torch.equal(out[b], one)
-        np.testing.assert_array_equal(plans[b], plan)
+        np.testing.assert_array_equal(plans[b], plan.cpu().numpy())
     ref, _ = batched.batched_stitch_chain(pans, cfg, device="cpu")
     for b in range(2):
         _assert_close_canvas(out[b].cpu().numpy().astype(np.uint8),

@@ -318,20 +318,48 @@ def plan_args():
     return feats, edges, (160, 160), (160, 160), SMALL_DEFAULT
 
 
+def _edge_args(seam: bool):
+    """The arguments of one composite + blend program call: a crop warped
+    onto a canvas beside the previous result, the backward model and the
+    offsets as tensors (the plan's rows), with the area-gated seam band
+    (window on the device, rgb gain) or the full-canvas blend."""
+    crops = _crops()
+    cfg = dataclasses.replace(SMALL_DEFAULT, blend=dataclasses.replace(
+        SMALL_DEFAULT.blend, seam_auto_area=20_000 if seam else 0,
+        seam_auto_band=16))
+    bwd = T(np.array([0.998, 0.002, 1e-5, -79.5, -0.001, 1.001, -1e-5, 2.25],
+                     np.float32))
+    offsets = T(np.array([0.0, -2.5], np.float32))
+    return (T(crops[1]).float(), T(crops[0]).float(), bwd, offsets,
+            (166, 245), (163, 240), cfg)
+
+
 def test_warm_programs_make_no_sync_and_no_upload(host_calls, plan_args):
-    """A warm call of the features program (fused and dense detection)
-    and of the plan builds no tensor from host data and reads no tensor
-    on the host, outside the plain versions of the kernels (the card runs
-    the kernels)."""
+    """A warm call of the features program (fused and dense detection),
+    of the plan, of an edge's composite + blend (the full-canvas blend
+    and the seam band), of the enhance tail and of a batch's whole
+    panorama builds no tensor from host data and reads no tensor on the
+    host, outside the plain versions of the kernels (the card runs the
+    kernels)."""
+    from test_torch_batched import TINY, _panoramas
+
     img = T(_crops()[0])
     assert SMALL_DEFAULT.sift.detect_impl == "pallas"
     assert SMALL.sift.detect_impl == "xla"
+    edge, seam_edge = _edge_args(False), _edge_args(True)
+    pano = T(_panoramas((0,))[0])
     calls = {
         "features": lambda: tbatched._project_and_extract_one(
             img, SMALL_DEFAULT),
         "features, dense detection": lambda: tbatched._project_and_extract_one(
             img, SMALL),
-        "plan": lambda: treg.plan_rows(*plan_args)}
+        "plan": lambda: treg.plan_rows(*plan_args),
+        "composite + blend": lambda: tstm._composite_and_blend(*edge),
+        "composite + seam band": lambda: tstm._composite_and_blend(
+            *seam_edge),
+        "enhance": lambda: tstm.equalize_and_mix(edge[1]),
+        "batched panorama": lambda: tbatched._stitch_one_fixed(
+            pano, TINY, (192, 256), tbatched.chain_edge_seq(3))}
     for name, call in calls.items():
         call()
         host_calls.clear()
@@ -453,6 +481,66 @@ def test_graphs_are_bounded_least_recent_first(fake_graphs):
     assert stats["evictions"] >= 2 and stats["graphs"] >= 2
 
 
+def test_a_scope_keeps_the_graphs_it_used(fake_graphs):
+    """Inside ``scope()`` a graph the scope used is not dropped for
+    another of its keys: a key that finds every graph kept used by the
+    scope runs eagerly (an overflow, no capture), so a cycle of more keys
+    than ``max_graphs`` replays the same graphs scope after scope instead
+    of capturing every key anew; a later scope drops the least recently
+    replayed graph as before."""
+    prog = fake_graphs(lambda x, k: x * k, "scoped")
+    prog.max_graphs = 2
+    x = torch.ones(2)
+    for _ in range(3):
+        with programs.scope():
+            outs = [prog(x, k) for k in (1, 2, 3)]
+        for k, out in zip((1, 2, 3), outs):
+            np.testing.assert_array_equal(out.numpy(), [k, k])
+    assert prog.captures == 2 and prog.evictions == 0
+    assert prog.overflows == 3 and prog.replays == 6
+    with programs.scope():
+        with programs.scope():        # nested: one scope
+            prog(x, 4), prog(x, 1)
+        np.testing.assert_array_equal(prog(x, 2).numpy(), [2, 2])
+    # 4 dropped 1 (the least recent), 1 then dropped 2, and 2 found both
+    # graphs used by the scope
+    assert prog.captures == 4 and prog.evictions == 2
+    assert prog.overflows == 4 and list(prog.graphs) == [
+        prog.key(x, 4)[0], prog.key(x, 1)[0]]
+    prog(x, 2)                        # outside a scope: the plain bound
+    assert prog.captures == 5 and prog.evictions == 3
+
+
+def test_a_stitch_with_more_edge_canvases_than_graphs(fake_graphs,
+                                                      monkeypatch):
+    """A stitch is one scope: with the composite + blend program bound
+    to one graph and two edge canvases, the first edge replays its graph
+    and the second runs eagerly in every stitch; the second stitch
+    captures nothing, and both panoramas equal the eager one."""
+    monkeypatch.setattr(programs, "_BACKEND", _FakeGraphs)
+    monkeypatch.setattr(programs, "_graphable", lambda device: True)
+    edge = tstm._composite_and_blend
+    monkeypatch.setattr(edge, "max_graphs", 1)
+    programs.clear_graphs()
+    images = _crops()
+    try:
+        with programs.disable_graphs():
+            ref = tstm.Stitcher(SMALL, device="cpu").stitch(images)
+        st = tstm.Stitcher(SMALL, device="cpu")
+        c0 = programs.capture_stats()
+        cold = st.stitch(images)
+        cold_d, c1 = programs.captures_since(c0), programs.capture_stats()
+        warm = st.stitch(images)
+        warm_d = programs.captures_since(c1)
+    finally:
+        programs.clear_graphs()
+    np.testing.assert_array_equal(cold, ref)
+    np.testing.assert_array_equal(warm, ref)
+    assert cold_d["by_program"]["composite_and_blend"] == 1, cold_d
+    assert cold_d["overflows"] == 1 and warm_d["overflows"] == 1
+    assert warm_d["captures"] == 0 and warm_d["evictions"] == 0, warm_d
+
+
 def test_plan_key_holds_no_edge_values(fake_graphs, plan_args):
     """Two edge sequences of one length replay one plan graph, each
     with its own rows, equal to the eager plan's."""
@@ -522,12 +610,19 @@ def test_failed_capture_raises_with_name_and_key(fake_graphs, monkeypatch):
 
 
 def test_the_port_programs():
-    """The features program, the SIFT program inlined into it, and the
-    plan; each wraps the function the JAX package jits."""
+    """The features program, the SIFT program inlined into it, the plan,
+    an edge's composite + blend, the enhance tail and a batch's whole
+    panorama; each wraps the function the JAX package jits."""
+    from computervisionimagestich2_tpu_torch.models import equalization
+
     names = {p.name: p for p in programs._PROGRAMS}
     assert names["project_and_extract"] is tbatched._project_and_extract_one
     assert names["sift_extract_stats"] is tsift.sift_extract_stats
     assert names["plan_edges"] is treg.plan_rows
+    assert names["composite_and_blend"] is tstm._composite_and_blend
+    assert names["equalize_and_mix"] is equalization.equalize_and_mix
+    assert tstm.equalize_and_mix is equalization.equalize_and_mix
+    assert names["stitch_one_fixed"] is tbatched._stitch_one_fixed
 
 
 # ------------------------------------------------------- (f) constant cache
@@ -575,9 +670,10 @@ def test_no_caller_writes_into_a_cached_constant():
 
 def test_graph_replays_in_a_trace():
     """The profile's count of replays from Chrome-trace events: two
-    ``cudaGraphLaunch`` calls, the device events under their correlation
-    ids, and a host-to-device copy inside a replay's span (caught) beside
-    one outside every replay (not counted)."""
+    ``cudaGraphLaunch`` calls, each with its host time and the device
+    events under its correlation id, and a host-to-device copy inside a
+    replay's span (caught) beside one outside every replay (not
+    counted)."""
     from computervisionimagestich2_tpu_torch.tools import probes
 
     def ev(cat, name, ts, dur, corr=None):
@@ -598,6 +694,7 @@ def test_graph_replays_in_a_trace():
         ev("kernel", "warp_bilinear_kernel", 60, 2, 5)]
     out = probes.summarize(events, wall=1e-4)
     assert out["graph_launches"] == 2 and out["graph_device_events"] == 3
+    assert out["graph_launch_host_ms"] == [[0.005, 2], [0.005, 1]]
     assert out["memcpy_htod_in_replays"] == 1
     assert out["memcpy_htod_events"] == 2 and out["device_events"] == 6
     assert out["kernels"]["detect_compact"]["device_launches"] == 1
