@@ -90,11 +90,24 @@ phase with its result and seconds:
 11. ``StreamingStitcher`` (BASELINE config 5): 10 frames at 1280x720 and 8
    at 1920x1080 panning by 1/8 of the frame width, per-frame ``push()``
    latency (median and worst after the first two frames, split into sift,
-   register and composite + blend; ``sift_extract`` replays its CUDA
-   graph from the first push on), keyframe switches, the canvas (on the
-   bucket grid, at most 4096 wide) and the launches per frame (B5 never);
-   at 720p the canvas of the first two frames against the CPU run of the
+   register and composite + blend; ``sift_extract`` and ``register_edge``
+   replay their CUDA graphs, the composite + blend runs eagerly),
+   keyframe switches, the canvas (on the bucket grid, at most 4096 wide)
+   and the launches per frame (B4 once per registration, B5 never); at
+   720p the canvas of the first two frames against the CPU run of the
    port;
+   phases 9, 10 and 11 (and 14's registration) run their path eagerly
+   under ``disable_graphs()`` and with graphs in one call
+   (``eager_and_graphs``: a cold and a warm run of each mode, a traced
+   one with graphs): the
+   outputs and warm launch counts bit for bit equal, the cold captures
+   and the warm replays by program (exact: phase 9 the features program
+   per frame, the ordering, ``register_edge`` and the composite + blend
+   per edge, the tail; phase 10 the same with one ordering program per
+   image pair; phase 11 SIFT per frame and ``register_edge`` per
+   registration; phase 14 ``_register_one`` per pair), no warm capture,
+   no host-to-device copy inside a replay, the counters equal to the
+   trace, and each mode's seconds and stage seconds;
 12. ``warp_model="projective"`` (``DEFAULT_CONFIG`` otherwise) on the
    scrambled crops of phases 3 and 7: the chain, B6's projective branch
    once per edge and its bilinear one never, no ``match_overflow`` logged,
@@ -121,7 +134,8 @@ phase with its result and seconds:
    extents against the chain-ordered ``Stitcher``; then
    ``batched_pairwise_register`` on three neighbouring pairs: B7 once per
    pair, against plain, its device time per call and per batch, the warps
-   against the CPU run;
+   against the CPU run, the pairs as graphs (one replay a pair) against
+   eager;
 15. ``match.method="l2pre"`` and ``match.distance="l2"`` at 4 x 512x384
    (B4 and B5 bypassed, as in the JAX package): the chain, the canvas
    against the CPU run, the ratio-test decisions that differ from exact
@@ -177,12 +191,13 @@ phase with its result and seconds:
    first, each a cold, a counted and two timed warm stitches and a
    profile; the graph run's panorama, each frame's features, projection
    and stats, the [E, 23] plan, each edge's composite + blend, the
-   enhance tail's output and the launch counts equal the eager run's bit
-   for bit; the cold run captures the features program (into which
-   ``sift_extract_stats`` is inlined), the plan, the composite + blend
-   once per canvas shape of its edges and the enhance tail, a second
-   stitch nothing; the profile shows one graph launch per frame, one for
-   the plan, one per edge and one for the tail, and no host-to-device
+   enhance tail's output, the ordering's counts and the launch counts
+   equal the eager run's bit for bit; the cold run captures the features
+   program (into which ``sift_extract_stats`` is inlined), the ordering,
+   the plan, the composite + blend once per canvas shape of its edges
+   and the enhance tail, a second stitch nothing; the profile shows one
+   graph launch per frame, one for the ordering, one for the plan, one
+   per edge and one for the tail, and no host-to-device
    copy inside a replay; the reversed edge sequence replays the plan's
    graph with the eager plan's rows (the plan's key holds no edge); in
    each mode's profile every launch counter equals the device kernels
@@ -206,8 +221,8 @@ phase with its result and seconds:
 19. the port's benchmark, ``bench_torch.py --cells pano4_512x384 --runs
    1``, in a fresh interpreter: exit code 0, one JSON line on stdout,
    printed, that says ``correct`` and shows the cold run's captures: the
-   features program, the plan, three composite + blend canvases and the
-   enhance tail.
+   features program, the ordering, the plan, three composite + blend
+   canvases and the enhance tail.
 
 In phases 4, 5, 8-11 and 12-17 every launch count is set to 0 just before
 the path runs and read just after; each path must launch each of its
@@ -1382,9 +1397,101 @@ def cli_phase(images, out_exact, flags=()) -> tuple[dict, np.ndarray]:
             "mean_diff_vs_exact": mean_diff(out_exact, out)}, out_b
 
 
+def eager_and_graphs(call, equal, off, replays) -> tuple[dict, object]:
+    """Phases 9-11 and 14: the programs on one path against their eager
+    run. ``call()`` runs the path once (synchronised) and returns (its
+    output, its stage seconds). Under ``disable_graphs()`` a cold and a
+    warm run, then with every graph dropped first a cold, a warm and a
+    traced run (``torch.profiler``) with graphs. The five outputs are
+    equal bit for bit (``equal(a, b)``) and so are the warm runs' launch
+    counts; each mode reports its runs' seconds, stage seconds, launches,
+    captures and replays by program. With graphs the warm and traced runs
+    capture nothing and replay each program as ``replays`` says (by
+    program, exact), the traced run launches that many graphs with no
+    host-to-device copy inside one and every launch counter equals the
+    device kernels of its trace; eager makes no capture and no replay (a
+    trace of the eager path is phase 18's). ``replays`` may also be a
+    function of the eager cold run's output that gives them. Returns
+    (report, the warm graph run's output)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.ops import _native
+
+    modes, outs = {}, {}
+    for mode in ("eager", "graphs"):
+        with (programs.disable_graphs() if mode == "eager"
+              else contextlib.nullcontext()):
+            programs.clear_graphs()
+            rep = {}
+            runs = (("cold", "warm", "traced") if mode == "graphs"
+                    else ("cold", "warm"))
+            for run_ in runs:
+                c = programs.capture_stats()
+                _native.reset_launch_counts()
+                t = time.perf_counter()
+                if run_ == "traced":
+                    got = []
+                    prof = profile_call(lambda: got.append(call()), off)
+                    out = got[0][0]
+                else:
+                    out, stages = call()
+                secs = time.perf_counter() - t
+                d = programs.captures_since(c)
+                outs[(mode, run_)] = out
+                rep[run_] = {"s": secs, "launches": _native.launch_counts(),
+                             "captures": d["captures"],
+                             "capture_s": d["capture_s"],
+                             "captures_by_program": d["by_program"],
+                             "replays_by_program": d["replays_by_program"],
+                             "overflows": d["overflows"]}
+                if run_ != "traced":
+                    rep[run_]["stage_s"] = stages
+            modes[mode] = rep
+    wrong = launches_vs_trace(prof["kernels"])
+    assert not wrong, ("launch counters != the trace", wrong)
+    ref = outs[("eager", "cold")]
+    for key, out in outs.items():
+        assert equal(out, ref), ("graphs != eager", key)
+    if callable(replays):
+        replays = replays(ref)
+    eager, graphs = modes["eager"], modes["graphs"]
+    assert eager["warm"]["launches"] == graphs["warm"]["launches"], (
+        eager["warm"]["launches"], graphs["warm"]["launches"])
+    for run_ in ("cold", "warm"):
+        assert eager[run_]["captures"] == 0, eager[run_]
+        assert not eager[run_]["replays_by_program"], eager[run_]
+    for run_ in ("warm", "traced"):
+        assert graphs[run_]["captures"] == 0, graphs[run_]
+        assert graphs[run_]["replays_by_program"] == replays, (
+            graphs[run_], replays)
+        assert graphs[run_]["overflows"] == 0, graphs[run_]
+    assert set(graphs["cold"]["captures_by_program"]) == set(replays), \
+        graphs["cold"]
+    graphs["profile"] = {k: prof[k] for k in PROFILE_KEYS}
+    graphs["launches_vs_trace"] = {
+        n: [k["counted_launches"], k["device_launches"]]
+        for n, k in prof["kernels"].items()}
+    assert prof["graph_launches"] == sum(replays.values()), prof
+    assert prof["memcpy_htod_in_replays"] == 0, prof
+    return ({"equal": {"outputs": True, "launches": True},
+             "eager": eager, "graphs": graphs,
+             "warm_ratio": graphs["warm"]["s"] / eager["warm"]["s"]},
+            outs[("graphs", "warm")])
+
+
+def stitch_call(st, images):
+    """``eager_and_graphs``'s call for a Stitcher: a stitch and its stage
+    seconds."""
+    return lambda: (st.stitch(images), dict(st.stage_times))
+
+
 def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
-    """Phase 9 on the crops of phase 3: the incremental stitch against
-    the planned canvas; bucketed against exact canvases (enhanced, and the
+    """Phase 9 on the crops of phase 3: the incremental stitch with its
+    programs as graphs against eager (``eager_and_graphs``: the features
+    program, the ordering, ``register_edge`` once per edge, the composite
+    + blend, the tail), and against the planned canvas; bucketed against
+    exact canvases (enhanced, and the
     blend alone: the padded canvas changes the pyramid's depth, so the two
     differ everywhere a little, in the JAX package too; the gate is the
     CPU comparison below); a dump and a resume; the incremental bucketed
@@ -1398,11 +1505,17 @@ def incremental_phase(images, out_planned, out_bucketed, config) -> dict:
     rep = {}
     inc = dataclasses.replace(config, planned=False)
     st = Stitcher(inc, device="cuda")
-    _, rep["incremental_cold_s"] = run(st, images)
-    out_i, rep["incremental_warm_s"], rep["incremental_launches"] = \
-        counted_run(st, images)
-    check_launches(rep["incremental_launches"], b4=3)
-    rep["incremental_stage_s"] = dict(st.stage_times)
+    n = len(images)
+    # the frames, the ordering's counts, each edge's registration and
+    # composite + blend, the enhance tail
+    rep["graphs_vs_eager"], out_i = eager_and_graphs(
+        stitch_call(st, images), np.array_equal,
+        OFF_MAIN_PATH | off_branch(inc.warp_model), {
+            "project_and_extract": n, "all_pairs_match_counts": 1,
+            "register_edge": n - 1, "composite_and_blend": n - 1,
+            "equalize_and_mix": 1})
+    warm = rep["graphs_vs_eager"]["graphs"]["warm"]
+    rep["incremental_launches"] = check_launches(warm["launches"], b4=n - 1)
     rep["incremental_vs_planned"] = one_step(out_planned, out_i)
 
     rep["bucketed_vs_exact_mean_diff"] = mean_diff(out_planned, out_bucketed)
@@ -1566,25 +1679,36 @@ MIXED_SHAPES = [(512, 384), (500, 384), (512, 360), (480, 384)]
 
 
 def mixed_phase(scene_order, config) -> dict:
-    """Phase 10: the crops of phase 3 cut to four shapes, scrambled."""
+    """Phase 10: the crops of phase 3 cut to four shapes, scrambled; the
+    programs as graphs against eager (``eager_and_graphs``: the features
+    program per frame, the ordering's pair program per pair, then as in
+    phase 9)."""
     from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
 
     images = scrambled([np.ascontiguousarray(img[:h, :w]) for img, (h, w)
                         in zip(scene_order, MIXED_SHAPES)])
     st = Stitcher(config, device="cuda")
     seen = record_ordering(st)
-    _, cold_s = run(st, images)
+    n = len(images)
+    pairs = n * (n - 1) // 2
+    # the frames, one ordering program per pair, each edge's registration
+    # and composite + blend, the enhance tail
+    rep, out = eager_and_graphs(
+        stitch_call(st, images), np.array_equal,
+        OFF_MAIN_PATH | {"pair_match_counts"} | off_branch(config.warp_model),
+        {"project_and_extract": n, "mixed_pair_counts": pairs,
+         "register_edge": n - 1, "composite_and_blend": n - 1,
+         "equalize_and_mix": 1})
     edges = check_chain(seen)
-    out, warm_s, launches = counted_run(st, images)
     assert st._feats_stacked is None
-    check_launches(launches, {"pair_match_counts"}, b4=6 + len(edges))
+    launches = check_launches(rep["graphs"]["warm"]["launches"],
+                              {"pair_match_counts"}, b4=pairs + len(edges))
     t = time.perf_counter()
     out_cpu = Stitcher(config, device="cpu").stitch(images)
     cpu_s = time.perf_counter() - t
     return {"images": [list(i.shape) for i in images], "edges": edges,
             "start": seen["start"], "canvas": list(out.shape),
-            "cold_s": cold_s, "warm_s": warm_s,
-            "stage_s": dict(st.stage_times), "launches": launches,
+            "launches": launches, "graphs_vs_eager": rep,
             "cpu_canvas": list(out_cpu.shape), "cpu_s": cpu_s,
             "mad_vs_cpu": canvas_vs_cpu(out, out_cpu)}
 
@@ -1592,9 +1716,13 @@ def mixed_phase(scene_order, config) -> dict:
 def stream_phase(config, h: int, w: int, n_frames: int, scale: int,
                  seed: int, cpu_check: bool) -> dict:
     """Phase 11 at one frame size: ``n_frames`` crops of one scene panning
-    by w / 8, pushed one by one; with ``cpu_check``, the first two frames
-    again through the CPU run of the port, whose canvas the card's must
-    match."""
+    by w / 8, pushed one by one, a whole stream a run of
+    ``eager_and_graphs`` (the SIFT program every push, ``register_edge``
+    on every registration, a keyframe switch's again; the composite +
+    blend eager in both modes); the per-push figures are the warm graph
+    stream's, beside the warm eager one's; with ``cpu_check``, the first
+    two frames again through the CPU run of the port, whose canvas the
+    card's must match."""
     import torch
 
     from computervisionimagestich2_tpu_torch.models import compose
@@ -1612,22 +1740,43 @@ def stream_phase(config, h: int, w: int, n_frames: int, scale: int,
         return StreamingStitcher(config, max_width=4096, project=True,
                                  anchor="keyframe", device=device)
 
-    ss = stream("cuda")
-    per = []
-    _native.reset_launch_counts()
-    before = _native.launch_counts()
-    for f in frames:
-        t = time.perf_counter()
-        hw = ss.push(f)
-        secs = time.perf_counter() - t
-        now = _native.launch_counts()
-        per.append({"push_s": secs, "stage_s": dict(ss.stage_times),
-                    "canvas": list(hw),
-                    "launches": {k: now[k] - before[k] for k in now}})
-        before = now
-    launches = _native.launch_counts()
-    check_launches(launches, {"pair_match_counts"})
-    canvas = ss.canvas()
+    def stat(vals):
+        return {"median": statistics.median(vals), "worst": max(vals)}
+
+    per_frame = {}
+
+    def one_stream():
+        ss = stream("cuda")
+        per = []
+        before = _native.launch_counts()
+        for f in frames:
+            t = time.perf_counter()
+            hw = ss.push(f)
+            secs = time.perf_counter() - t
+            now = _native.launch_counts()
+            per.append({"push_s": secs, "stage_s": dict(ss.stage_times),
+                        "canvas": list(hw),
+                        "launches": {k: now[k] - before[k] for k in now}})
+            before = now
+        per_frame["last"] = per
+        steady = per[2:]
+        return (ss.n_keyframe_switches, ss.canvas()), {
+            "first_push_s": per[0]["push_s"],
+            "push_s": stat([p["push_s"] for p in steady]),
+            **{f"{k}_s": stat([p["stage_s"][k] for p in steady])
+               for k in ("sift", "register", "composite")}}
+
+    # the registrations: one a push after the first, one more a keyframe
+    # switch (the eager stream's switches)
+    rep, (n_switches, canvas) = eager_and_graphs(
+        one_stream, lambda a, b: a[0] == b[0] and np.array_equal(a[1], b[1]),
+        OFF_MAIN_PATH | {"pair_match_counts"} | off_branch(config.warp_model),
+        lambda out: {"sift_extract_stats": n_frames,
+                     "register_edge": n_frames - 1 + out[0]})
+    n_reg = n_frames - 1 + n_switches
+    per = per_frame["last"]  # the warm graph stream's
+    launches = rep["graphs"]["warm"]["launches"]
+    check_launches(launches, {"pair_match_counts"}, b4=n_reg)
     assert canvas.dtype == np.uint8 and canvas.shape[2] == 3
     # every canvas after the first frame lies on the bucket grid, the
     # rolling window holds the width at max_width
@@ -1646,20 +1795,15 @@ def stream_phase(config, h: int, w: int, n_frames: int, scale: int,
         two_s[device] = time.perf_counter() - t
     if cpu_check:
         mad = canvas_vs_cpu(two["cuda"].canvas(), two["cpu"].canvas())
-    steady = per[2:]
-
-    def stat(vals):
-        return {"median": statistics.median(vals), "worst": max(vals)}
-
+    warm = rep["graphs"]["warm"]["stage_s"]
     return {"frames": n_frames, "frame": [h, w], "pan": pan,
-            "first_push_s": per[0]["push_s"],
-            "push_s": stat([p["push_s"] for p in steady]),
-            **{f"{k}_s": stat([p["stage_s"][k] for p in steady])
-               for k in ("sift", "register", "composite")},
-            "keyframe_switches": ss.n_keyframe_switches,
+            **warm, "eager_warm": rep["eager"]["warm"]["stage_s"],
+            "keyframe_switches": n_switches, "registrations": n_reg,
             "canvas": list(canvas.shape),
+            "canvas_keys": len({tuple(p["canvas"]) for p in per}),
             "content_cols_top_rows": int(content.any(axis=0).sum()),
             "launches": launches, "per_frame": per,
+            "graphs_vs_eager": rep,
             "two_frames_mad_vs_cpu": mad, "two_frames_s": two_s,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
@@ -1807,8 +1951,11 @@ def b4_capacity(pans, cfg) -> dict:
 def register_phase(scene_order, b7: dict) -> dict:
     """Phase 14's registration: ``batched_pairwise_register`` on the B = 3
     neighbouring pairs of the 512x384 crops (luma, unprojected). A cold
-    call, then one with its launch counts (B7 once per pair, B1 once per
-    image, B4, B5 and B6 never); B7 against its plain version on each of
+    call, then one recorded (eager) with its launch counts (B7 once per
+    pair, B1 once per image, B4, B5 and B6 never); the pairs as graphs
+    against eager (``eager_and_graphs``: ``_register_one`` replayed once
+    a pair, the same launches, coefficients and inliers equal to the
+    recorded call's); B7 against its plain version on each of
     its calls (d1 / d2 rtol 1e-5, i1 equal where the 2-NN gap is clear);
     its device time per call (``kernel_ms``) and per batch (their sum); the
     warps and inlier counts against the port's CPU run at
@@ -1842,10 +1989,20 @@ def register_phase(scene_order, b7: dict) -> dict:
     launches = _native.launch_counts()
     on_path = {"detect_compact", "sift_orientation_hist", "sift_descriptors",
                "l1_two_nearest"}
-    assert all((c > 0) == (k in on_path) for k, c in launches.items()), \
-        launches
-    assert launches["l1_two_nearest"] == n, launches
-    assert launches["detect_compact"] == 2 * n, launches
+
+    def timed_register():
+        t = time.perf_counter()
+        out = register()
+        return out, {"register_s": time.perf_counter() - t}
+    graphs_rep, (coeffs_g, inliers_g) = eager_and_graphs(
+        timed_register, lambda a, b: all(map(torch.equal, a, b)),
+        set(KERNELS) - on_path, {"register_one": n})
+    assert torch.equal(coeffs_g, coeffs) and torch.equal(inliers_g, inliers)
+    for counts in (launches, graphs_rep["graphs"]["warm"]["launches"]):
+        assert all((c > 0) == (k in on_path) for k, c in counts.items()), \
+            counts
+        assert counts["l1_two_nearest"] == n, counts
+        assert counts["detect_compact"] == 2 * n, counts
     calls = rec.calls["l1_two_nearest"]
     err = 0.0
     for a in calls:
@@ -1887,6 +2044,7 @@ def register_phase(scene_order, b7: dict) -> dict:
                                       if b7_batch_ms else None)
     return {"pairs": int(n), "frame": list(ga.shape[1:]),
             "register_s": secs, "launches": launches,
+            "graphs_vs_eager": graphs_rep,
             "b7_max_abs_err": err, "b7_per_call": per_call,
             "b7_queries_refs": [[int(a[2].sum()), int(a[3].sum())]
                                 for a in calls],
@@ -2656,21 +2814,28 @@ PROFILE_KEYS = ("wall_s", "device_busy_ms", "idle_share", "device_events",
 @contextlib.contextmanager
 def program_outputs():
     """While open, keep what the stitcher's programs return: each frame's
-    (Features, projection, stats) from the features program, the plan's
-    arguments and [E, 23] rows, each edge's canvas from the composite +
-    blend with the program's key, and the enhance tail's output."""
+    (Features, projection, stats) from the features program, the
+    ordering's [N, N] counts, the plan's arguments and [E, 23] rows, each
+    edge's canvas from the composite + blend with the program's key, and
+    the enhance tail's output."""
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
     from computervisionimagestich2_tpu_torch.parallel import batched
 
-    got = {"features": [], "edges": [], "edge_keys": [], "enhanced": []}
+    got = {"features": [], "edges": [], "edge_keys": [], "enhanced": [],
+           "ordering": []}
     orig = (batched._project_and_extract_one, stm.plan_edges_with_rows,
-            stm._composite_and_blend, stm.equalize_and_mix)
-    features, plan, edge, enhance = orig
+            stm._composite_and_blend, stm.equalize_and_mix,
+            stm.all_pairs_match_counts)
+    features, plan, edge, enhance, ordering = orig
 
     def features_rec(*a):
         out = features(*a)
         got["features"].append(out)
         return out
+
+    def ordering_rec(*a):
+        got["ordering"].append(ordering(*a))
+        return got["ordering"][-1]
 
     def plan_rec(*a):
         got["plan_args"] = a
@@ -2687,13 +2852,15 @@ def program_outputs():
         return got["enhanced"][-1]
 
     (batched._project_and_extract_one, stm.plan_edges_with_rows,
-     stm._composite_and_blend, stm.equalize_and_mix) = (
-        features_rec, plan_rec, edge_rec, enhance_rec)
+     stm._composite_and_blend, stm.equalize_and_mix,
+     stm.all_pairs_match_counts) = (
+        features_rec, plan_rec, edge_rec, enhance_rec, ordering_rec)
     try:
         yield got
     finally:
         (batched._project_and_extract_one, stm.plan_edges_with_rows,
-         stm._composite_and_blend, stm.equalize_and_mix) = orig
+         stm._composite_and_blend, stm.equalize_and_mix,
+         stm.all_pairs_match_counts) = orig
 
 
 def program_mode(images, cfg, eager: bool, fresh: list) -> tuple:
@@ -2809,8 +2976,8 @@ def many_edges_phase(n: int = MANY_FRAMES) -> dict:
     for d in warm:
         assert d["captures"] == 0 and d["evictions"] == 0, d
         assert d["overflows"] == n - 1 - edge.max_graphs, d
-        # frames, the plan, the kept edges, the enhance tail
-        assert d["replays"] == n + 1 + edge.max_graphs + 1, d
+        # frames, the ordering, the plan, the kept edges, the enhance tail
+        assert d["replays"] == n + 1 + 1 + edge.max_graphs + 1, d
     return {"frames": n, "order": order, "canvas": list(out_e.shape),
             "composite_keys": keys, "max_graphs": edge.max_graphs,
             "cold": {"graphs_s": cold_g, "eager_s": cold_e, **cold},
@@ -2837,11 +3004,13 @@ def bench_phase() -> dict:
     print(json.dumps(line), flush=True)
     assert line["cell"] == "pano4_512x384", line
     assert line["device"] == "cuda" and line["correct"] is True, line
-    # the features program, the plan, the three edges' canvases (under
-    # exact_canvas every edge grows the canvas) and the enhance tail
+    # the features program, the ordering, the plan, the three edges'
+    # canvases (under exact_canvas every edge grows the canvas) and the
+    # enhance tail
     assert line["setup"]["graphs"]["by_program"] == {
-        "project_and_extract": 1, "plan_edges": 1, "composite_and_blend": 3,
-        "equalize_and_mix": 1}, line["setup"]
+        "project_and_extract": 1, "all_pairs_match_counts": 1,
+        "plan_edges": 1, "composite_and_blend": 3, "equalize_and_mix": 1}, \
+        line["setup"]
     return {"correct": line["correct"], "panorama_ms": line["panorama_ms"],
             "cold_ms": line["cold_ms"], "graphs": line["setup"]["graphs"],
             "reprojection_parity_px": line["checks"][
@@ -2928,6 +3097,9 @@ def graphs_phase(images, cfg, fresh, owner_probe: bool = False) -> dict:
         for a, b in zip((*feats_e, proj_e, stats_e),
                         (*feats_g, proj_g, stats_g)):
             assert torch.equal(a, b), "graph features != eager"
+    assert len(got_e["ordering"]) == len(got_g["ordering"]) == 1
+    assert torch.equal(got_e["ordering"][0], got_g["ordering"][0]), \
+        "graph ordering counts != eager"
     assert np.array_equal(got_e["plan"], got_g["plan"]), "graph plan != eager"
     n_edges = len(got_g["plan"])
     assert len(got_e["edges"]) == len(got_g["edges"]) == n_edges
@@ -2938,8 +3110,9 @@ def graphs_phase(images, cfg, fresh, owner_probe: bool = False) -> dict:
         "graph enhance tail != eager"
     edge_keys = len(set(got_g["edge_keys"]))
     assert graph["captures_by_program"] == {
-        "project_and_extract": 1, "plan_edges": 1,
-        "composite_and_blend": edge_keys, "equalize_and_mix": 1}, graph
+        "project_and_extract": 1, "all_pairs_match_counts": 1,
+        "plan_edges": 1, "composite_and_blend": edge_keys,
+        "equalize_and_mix": 1}, graph
     assert graph["warm_captures"] == 0, graph
     assert eager["captures"] == 0, eager
     assert all(f["captures"] == 0 for f in eager["fresh_scenes"]), eager
@@ -2949,8 +3122,8 @@ def graphs_phase(images, cfg, fresh, owner_probe: bool = False) -> dict:
             > eager["memory"]["graph_pools_reserved_gib"]), (graph["memory"],
                                                              eager["memory"])
     prof = graph["profile"]
-    # frames, the plan, the edges, the enhance tail
-    assert prof["graph_launches"] == len(images) + 1 + n_edges + 1, prof
+    # frames, the ordering, the plan, the edges, the enhance tail
+    assert prof["graph_launches"] == len(images) + 1 + 1 + n_edges + 1, prof
     assert prof["memcpy_htod_in_replays"] == 0, prof
 
     feats, edges, img_hw, start_hw, pcfg = got_g["plan_args"]
@@ -2974,8 +3147,9 @@ def graphs_phase(images, cfg, fresh, owner_probe: bool = False) -> dict:
             "other_edges_replayed": [list(e) for e in other],
             "edge_canvases": [list(e.shape) for e in got_g["edges"]],
             "composite_keys": edge_keys,
-            "equal": {"panorama": True, "features": True, "plan": True,
-                      "edges": True, "enhanced": True, "launches": True},
+            "equal": {"panorama": True, "features": True, "ordering": True,
+                      "plan": True, "edges": True, "enhanced": True,
+                      "launches": True},
             "fresh_scene_first_ratios": [
                 g["first_s"] / e["first_s"]
                 for g, e in zip(graph["fresh_scenes"],

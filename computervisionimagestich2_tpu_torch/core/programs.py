@@ -4,12 +4,17 @@
 The JAX package runs its main path as a few programs, each compiled once
 per static key: the per-image features program (``parallel/batched.py::
 _project_and_extract_one`` around ``models/sift.py::sift_extract_stats``),
-the edge plan (``models/registration.py::plan_rows``), each edge's
+the ordering's match counts (``models/registration.py::
+all_pairs_match_counts``; on mixed shapes one program per image pair,
+``models/stitcher.py::_pair_counts``), the edge plan
+(``models/registration.py::plan_rows``, around ``register_edge``, itself
+a program for the incremental loop and the stream), each edge's
 composite + blend (``models/stitcher.py::_composite_and_blend``), the
-enhance tail (``models/equalization.py::equalize_and_mix``) and a batch's
+enhance tail (``models/equalization.py::equalize_and_mix``), a batch's
 whole panorama (``parallel/batched.py::_stitch_one_fixed``, into which
-the features program and the plan are inlined). Run eagerly, PyTorch
-pays the host's launch of every kernel of them, one at a time.
+the features program and the plan are inlined) and a batch's
+registration pair (``parallel/batched.py::_register_one``). Run eagerly,
+PyTorch pays the host's launch of every kernel of them, one at a time.
 ``program`` gives a function the JAX execution contract on a CUDA device:
 
 - the key is the function's static arguments (every argument that is not
@@ -264,15 +269,18 @@ def program(name: str):
 def capture_stats() -> dict:
     """Over every program: the captures made so far (in all, and by
     program name) and the host seconds of their warm-ups and captures,
-    the replays run, the graphs kept, the graphs dropped to make room and
-    the calls a full scope ran eagerly."""
-    by_program = collections.Counter()
+    the replays run (in all, and by program name), the graphs kept, the
+    graphs dropped to make room and the calls a full scope ran
+    eagerly."""
+    by_program, replays = collections.Counter(), collections.Counter()
     for p in _PROGRAMS:
         by_program[p.name] += p.captures
+        replays[p.name] += p.replays
     return {"captures": sum(p.captures for p in _PROGRAMS),
             "by_program": dict(by_program),
             "capture_s": sum(p.capture_s for p in _PROGRAMS),
             "replays": sum(p.replays for p in _PROGRAMS),
+            "replays_by_program": dict(replays),
             "graphs": sum(len(p.graphs) for p in _PROGRAMS),
             "evictions": sum(p.evictions for p in _PROGRAMS),
             "overflows": sum(p.overflows for p in _PROGRAMS)}
@@ -280,16 +288,17 @@ def capture_stats() -> dict:
 
 def captures_since(before: dict) -> dict:
     """What the programs did since ``before`` (a ``capture_stats()``):
-    the captures made, in all and by program (the programs that made
-    none left out), their host seconds, the replays, the graphs dropped
-    and the calls run eagerly by a full scope."""
+    the captures made and the replays run, each in all and by program
+    (the programs that made none left out), the captures' host seconds,
+    the graphs dropped and the calls run eagerly by a full scope."""
     now = capture_stats()
     delta = {k: now[k] - before[k]
              for k in ("captures", "capture_s", "replays", "evictions",
                        "overflows")}
-    delta["by_program"] = {k: n - before["by_program"].get(k, 0)
-                           for k, n in now["by_program"].items()
-                           if n != before["by_program"].get(k, 0)}
+    for k in ("by_program", "replays_by_program"):
+        delta[k] = {name: n - before[k].get(name, 0)
+                    for name, n in now[k].items()
+                    if n != before[k].get(name, 0)}
     return delta
 
 

@@ -13,8 +13,11 @@ it indexes the features with the edge tensor on the device and folds the
 edge ids into the RANSAC keys there, so its key is the JAX program's
 (the features' shapes, the number of edges, ``img_hw``, ``start_hw`` and
 ``cfg``) and two scenes with other edges of one count replay one graph.
-``all_pairs_match_counts`` gives graph ordering its [N, N] match counts
-from one launch of kernel B5 (under exact L1).
+``register_edge`` is a program of its own (the JAX package's jit) for the
+callers off the plan, the incremental loop and the stream: its edge id is
+a 0-dim device tensor, so its key holds no edge. ``all_pairs_match_counts``
+gives graph ordering its [N, N] match counts from one launch of kernel B5
+(under exact L1), as a program too.
 """
 from __future__ import annotations
 
@@ -36,8 +39,9 @@ def _pick(cond: torch.Tensor, a: MatchPairs, b: MatchPairs) -> MatchPairs:
     return MatchPairs(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
+@program("register_edge")
 def register_edge(feats_src: Features, feats_dst: Features,
-                  cfg: StitchConfig, edge_id: int = 0,
+                  cfg: StitchConfig, edge_id: int | torch.Tensor = 0,
                   img_hw: tuple[int, int] | None = None):
     """Returns (forward, backward, n_matches, overflow): forward maps
     dst-image coords into the src/result frame, backward maps canvas
@@ -45,11 +49,19 @@ def register_edge(feats_src: Features, feats_dst: Features,
     match count, overflow the matches dropped by the capacity.
 
     ``edge_id`` decorrelates the RANSAC draws across edges (fold_in); each
-    direction folds its own tag. An int folds on the host; a 0-dim integer
-    tensor (the plan's) folds on its device, with the seed's key and the
-    tags as device constants. ``img_hw``: the incoming image's (H, W);
-    when given, the forward RANSAC gates out hypotheses that map the image
-    corners more than 4 image diagonals outside the matched region."""
+    direction folds its own tag. A 0-dim integer tensor on the features'
+    device folds there, with the seed's key and the tags as device
+    constants; an int folds on the host, with the same bits. ``img_hw``:
+    the incoming image's (H, W); when given, the forward RANSAC gates out
+    hypotheses that map the image corners more than 4 image diagonals
+    outside the matched region.
+
+    A program (the JAX package's jit, its ``registration.py:26``): on the
+    card one CUDA graph per key, the features' shapes, ``cfg`` and
+    ``img_hw``. An int ``edge_id`` is a static argument, a key of its
+    own, so the callers on the card hand over the tensor: the incremental
+    loop a ``const`` of its edge, the stream its device frame counter,
+    the plan (into whose graph this one is inlined) its edge row."""
     mcfg = cfg.match
     s2d, d2s = match_features_bidir(feats_src, feats_dst,
                                     mcfg.ratio_threshold, mcfg.distance,
@@ -62,9 +74,8 @@ def register_edge(feats_src: Features, feats_dst: Features,
 
     dev = feats_src.desc.device
     if isinstance(edge_id, torch.Tensor):
-        seed = const([0, cfg.ransac.seed & 0xFFFFFFFF], torch.int64, dev)
         tags = const([0, 1], torch.int64, dev)
-        key = rng.fold_in(seed, edge_id)
+        key = rng.fold_in(rng.prng_key_on(cfg.ransac.seed, dev), edge_id)
         key_fwd, key_bwd = rng.fold_in(key, tags[0]), rng.fold_in(key, tags[1])
     else:
         key = rng.fold_in(rng.prng_key(cfg.ransac.seed), edge_id)
@@ -200,6 +211,7 @@ def plan_rows(feats_stacked: Features, edges: torch.Tensor,
     return torch.stack(rows)
 
 
+@program("all_pairs_match_counts")
 def all_pairs_match_counts(desc: torch.Tensor, valid: torch.Tensor,
                            cfg: StitchConfig) -> torch.Tensor:
     """Match counts for every ordered image pair (ImageProcess.cpp:117-137).
@@ -211,20 +223,26 @@ def all_pairs_match_counts(desc: torch.Tensor, valid: torch.Tensor,
     of ``distance.pair_match_counts`` (kernel B5 on CUDA tensors). Under
     ``method="l2pre"`` (with ``l2pre_m_counts`` candidates) or
     ``distance="l2"`` each pair runs ``ratio_match_bidir``, as the JAX
-    package's scan does (its ``registration.py:243-257``)."""
+    package's scan does (its ``registration.py:243-257``).
+
+    A program (the JAX package's jit, its ``registration.py:189``): on the
+    card one CUDA graph per key, the stacked features' shapes and ``cfg``
+    (``Stitcher`` trims them to ``live_prefix`` first, outside, as that
+    readback sets the key). The pair list is a host constant: the loop of
+    the plain PyTorch strategies walks its host copy."""
     n = desc.shape[0]
     out = torch.zeros((n, n), dtype=torch.int32, device=desc.device)
     if n <= 1:
         return out
     mcfg = cfg.match
-    pairs = const([(i, j) for i in range(n) for j in range(i + 1, n)],
-                  torch.int32, desc.device)
+    pair_list = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    pairs = const(pair_list, torch.int32, desc.device)
     if mcfg.distance == "l1" and mcfg.method != "l2pre":
         counts = distance.pair_match_counts(desc, valid, pairs,
                                             mcfg.ratio_threshold)
     else:
         rows = []
-        for i, j in pairs.tolist():
+        for i, j in pair_list:
             okq, _, okr, _ = distance.ratio_match_bidir(
                 desc[j], desc[i], valid[j], valid[i], mcfg.ratio_threshold,
                 mcfg.distance, mcfg.method, mcfg.l2pre_m_counts)

@@ -7,8 +7,9 @@ of device stages:
   per image:  cylindrical projection -> u8 luma -> SIFT (images of one
               shape share one u8 upload; mixed shapes go one by one)
   ordering:   graph discovery (the default: all-pairs match counts from one
-              launch of kernel B5 on uniform shapes, or one bidirectional
-              match per i<j pair on mixed shapes; the reference's directed
+              launch of kernel B5 on uniform shapes, a program; or one
+              bidirectional match per i<j pair on mixed shapes, a program
+              per pair, ``_pair_counts``; the reference's directed
               stichingMat rule, ImageProcess.cpp:101-137) or the
               pre-ordered chain (src/ex6/ImageProcess.cpp:150-159); both
               stitched breadth-first from the middle image
@@ -16,9 +17,11 @@ of device stages:
               edge registered first (registration.plan_edges), one
               readback of the [E, 23] plan, then one composite + blend per
               edge. Incremental mode (``planned=False``, or mixed shapes)
-              keeps the reference's per-edge loop: register, read the two
-              models and the overflow back in one copy, plan the canvas on
-              the host, composite, blend. Either way the composite + blend
+              keeps the reference's per-edge loop: register (the
+              ``register_edge`` program, its edge id a device constant),
+              read the two models and the overflow back in one copy, plan
+              the canvas on the host, composite, blend. Either way the
+              composite + blend
               of an edge is a program (one CUDA graph per canvas shape on
               the card) whose B6 reads the backward model and the offsets
               from device memory: the plan's rows, or the edge's model and
@@ -48,8 +51,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, StitchConfig, check_supported
-from ..core.programs import program, scope
+from ..config import (DEFAULT_CONFIG, MatchConfig, StitchConfig,
+                      check_supported)
+from ..core.programs import const, program, scope
 from ..core.types import Features
 from ..device import resolve_device
 from ..ops.warp import cylindrical_project, trunc_u8
@@ -88,6 +92,20 @@ def _composite_and_blend(proj_dst: torch.Tensor, result: torch.Tensor,
     a = apply_composite_gain(a, b, cfg.blend, comp_hw[0], comp_hw[1])
     blended = blend_edge(a, b, cfg.blend, out_hw[0])
     return trunc_u8(blended[:out_hw[0], :out_hw[1]])
+
+
+@program("mixed_pair_counts")
+def _pair_counts(feats_a: Features, feats_b: Features,
+                 mcfg: MatchConfig) -> torch.Tensor:
+    """One i<j pair of the mixed-shape ordering (the JAX package's loop,
+    its ``models/stitcher.py:339-348``): both uncapped ratio-test counts
+    of one ``match_features_bidir`` (one B4 launch on the card), int32 [2]
+    = (|getImgPair(i, j)|, |getImgPair(j, i)|). A program: on the card one
+    CUDA graph per key, the two feature sets' shapes and ``mcfg``."""
+    ij, ji = match_features_bidir(feats_a, feats_b, mcfg.ratio_threshold,
+                                  mcfg.distance, mcfg.max_matches,
+                                  mcfg.method, mcfg.l2pre_m_counts)
+    return torch.stack([ij.n_raw, ji.n_raw])
 
 
 def bfs_edge_seq(adj: list[list[bool]], start: int,
@@ -275,9 +293,11 @@ class Stitcher:
         reference's graph is directional in the asymmetric case: visiting
         (i, j) mirrors stichingMat[j][i] only if it is already true;
         otherwise getImgPair(i, j) decides in that direction. Stacked
-        features take one B5 launch; mixed shapes take one bidirectional
-        match (two B4 launches) per i<j pair, whose uncapped counts give
-        counts[i][j] and counts[j][i]. One readback either way."""
+        features take one B5 launch (the ``all_pairs_match_counts``
+        program); mixed shapes take one bidirectional match per i<j pair
+        (the ``_pair_counts`` program), whose uncapped counts give
+        counts[i][j] and counts[j][i], written into the [N, N] matrix on
+        the device. One readback either way."""
         mcfg = self.config.match
         if self._feats_stacked is not None:
             mf = self._matching_feats()
@@ -288,12 +308,8 @@ class Stitcher:
                                  device=self.device)
             for i in range(n):
                 for j in range(i + 1, n):
-                    ij, ji = match_features_bidir(
-                        feats[i], feats[j], mcfg.ratio_threshold,
-                        mcfg.distance, mcfg.max_matches, mcfg.method,
-                        mcfg.l2pre_m_counts)
-                    counts[i, j] = ij.n_raw
-                    counts[j, i] = ji.n_raw
+                    counts[i, j], counts[j, i] = _pair_counts(
+                        feats[i], feats[j], mcfg)
         return directed_adjacency(counts.cpu().tolist(), mcfg.pair_threshold)
 
     @staticmethod
@@ -344,8 +360,11 @@ class Stitcher:
         ``feats`` and ``projected`` are updated in place. Returns the new
         canvas."""
         cfg = self.config
+        # the edge id as a device constant (the pairs are finite): the
+        # program's key holds no edge
+        edge_id = const(src_i * 65536 + dst_i, torch.int64, self.device)
         forward, backward, _, ovf = register_edge(
-            feats[src_i], feats[dst_i], cfg, src_i * 65536 + dst_i,
+            feats[src_i], feats[dst_i], cfg, edge_id,
             tuple(projected[dst_i].shape[:2]))
         # [forward, backward, overflow]: 8 + 8 + 1 or 9 + 9 + 1 floats
         n_coef = forward.shape[0]

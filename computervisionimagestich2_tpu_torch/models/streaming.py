@@ -13,9 +13,18 @@ blended into the canvas:
 - above ``max_width`` the oldest columns are dropped and both feature sets
   shift with them: a rolling window of bounded memory.
 
-Per frame: one registration (two B4 launches), one readback of the two
-models and the counts, then composite (B6, the backward model by value)
-and blend on the device.
+Per frame: one registration (the ``register_edge`` program: on the card
+a CUDA graph replayed push after push, its RANSAC keys folded from a
+device frame counter; one B4 launch), one readback of the two models and
+the counts, then composite (B6, the backward model by value) and blend
+on the device.
+
+The composite + blend stays eager. The stream keeps its canvas padded up
+the bucket grid, and that padded canvas runs away (ROADMAP.md §C, as in
+the JAX package): nearly every push brings a new canvas shape
+(``chip_smoke.py`` phase 11 counts them), so a graph per canvas shape
+would be captured and hardly ever replayed.
+
 ``stage_times`` holds the last ``push``'s seconds for ``sift``,
 ``register`` and ``composite`` (composite + blend); on CUDA each stage ends
 in a synchronise, so they add up to the frame's latency.
@@ -75,6 +84,9 @@ class StreamingStitcher:
         self._feats = None            # previous frame, canvas coordinates
         self._kf_feats = None         # keyframe, canvas coordinates
         self._n_frames = 0
+        # the frame index on the device (the registration's edge id),
+        # advanced there each push: no upload, no constant per frame
+        self._frame_id: torch.Tensor | None = None
         self.n_keyframe_switches = 0
         self._timer = obs.StageTimer()
 
@@ -93,11 +105,12 @@ class StreamingStitcher:
         return img, sift_extract(to_gray(img), self.config.sift)
 
     def _register(self, target, feats, img_hw):
-        """register_edge against ``target``, then one readback of forward,
-        backward, n_matches and overflow. Returns (forward on the device,
-        forward and backward on the host, n_matches, overflow)."""
+        """register_edge against ``target`` (edge id: the frame index, a
+        device tensor), then one readback of forward, backward, n_matches
+        and overflow. Returns (forward on the device, forward and backward
+        on the host, n_matches, overflow)."""
         forward, backward, n_matches, ovf = register_edge(
-            target, feats, self.config, self._n_frames, img_hw)
+            target, feats, self.config, self._frame_id, img_hw)
         n = forward.shape[0]
         host = torch.cat([forward, backward, n_matches.float()[None],
                           ovf.float()[None]]).cpu().numpy()
@@ -114,6 +127,8 @@ class StreamingStitcher:
             self._result = img
             self._feats = self._kf_feats = feats
             self._n_frames = 1
+            self._frame_id = torch.ones((), dtype=torch.int64,
+                                        device=self.device)
             return tuple(self._result.shape[:2])
 
         img_hw = tuple(img.shape[:2])
@@ -160,6 +175,7 @@ class StreamingStitcher:
             self._kf_feats = update_features_by_offset(
                 self._kf_feats, float(int(min_x)), float(int(min_y)))
             self._n_frames += 1
+            self._frame_id += 1
 
             if self.max_width and self._result.shape[1] > self.max_width:
                 drop = self._result.shape[1] - self.max_width

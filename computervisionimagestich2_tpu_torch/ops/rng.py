@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.programs import const
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -60,6 +62,13 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
 def prng_key(seed: int) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a 32-bit seed: [0, seed]."""
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64)
+
+
+def prng_key_on(seed: int, device) -> torch.Tensor:
+    """``prng_key(seed)`` on ``device``, uploaded once and cached
+    (``core/programs.py::const``): what a program reads. Never write into
+    it."""
+    return const([0, int(seed) & _M32], torch.int64, device)
 
 
 def fold_in(key: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ kernels do not vmap, pins them off there (``_nopallas``). Here the batch is
 a loop over its members on one device: on the card every member runs the
 kernels of its path (B1-B3 for the features, B4 and B6 for a panorama, B7
 for a registration pair), a panorama as one CUDA graph
-(``_stitch_one_fixed``), on the CPU their plain versions, and a batch
+(``_stitch_one_fixed``) and a registration pair as one
+(``_register_one``), on the CPU their plain versions, and a batch
 equals its members run one at a time, bit for bit.
 
 ``shard_batch`` splits a batch's axis 0 over a mesh's ``data`` devices
@@ -77,19 +78,26 @@ def _members(batch, device) -> tuple[list[torch.Tensor], torch.device]:
     return list(torch.as_tensor(batch, device=dev)), dev
 
 
+@program("register_one")
 def _register_one(gray_a: torch.Tensor, gray_b: torch.Tensor,
                   cfg: StitchConfig):
     """Pairwise registration: features of a and b -> warp coeffs b -> a
     and the inlier count. The matcher's method stays "auto" (exact L1) and
-    the model bilinear, as in the JAX package's ``_register_one``."""
+    the model bilinear, as in the JAX package's ``_register_one``. The
+    RANSAC key, ``PRNGKey(cfg.ransac.seed)``, is a device constant.
+
+    A program (the member of the JAX package's vmapped
+    ``batched_pairwise_register``, its ``parallel/batched.py:47``): on the
+    card one CUDA graph per key, the frames' shape and ``cfg``, into which
+    the SIFT program is inlined."""
     fa = sift_extract(gray_a, cfg.sift)
     fb = sift_extract(gray_b, cfg.sift)
     pairs = match_features(fb, fa, cfg.match.ratio_threshold,
                            cfg.match.distance, cfg.match.max_matches)
     rc = cfg.ransac
-    coeffs, _, n_inliers = ransac_warp(pairs, rng.prng_key(rc.seed),
-                                       rc.n_hypotheses, rc.threshold,
-                                       rc.n_sample, lo_iters=rc.lo_iters)
+    coeffs, _, n_inliers = ransac_warp(
+        pairs, rng.prng_key_on(rc.seed, gray_a.device), rc.n_hypotheses,
+        rc.threshold, rc.n_sample, lo_iters=rc.lo_iters)
     return coeffs, n_inliers
 
 
@@ -97,9 +105,10 @@ def batched_pairwise_register(gray_a, gray_b,
                               cfg: StitchConfig = DEFAULT_CONFIG,
                               device: str | torch.device = "cuda"):
     """Registration of a batch of pairs: gray_a, gray_b [B, H, W] float32
-    luma (arrays, tensors or ``shard_batch`` batches). Every pair draws
-    from the same unsalted ``prng_key(cfg.ransac.seed)``, as in the JAX
-    package. Returns (coeffs [B, 8], inliers [B]) on ``device`` (on the
+    luma (arrays, tensors or ``shard_batch`` batches), one ``_register_one``
+    program call per pair (on the card a replay per pair). Every pair
+    draws from the same unsalted ``prng_key(cfg.ransac.seed)``, as in the
+    JAX package. Returns (coeffs [B, 8], inliers [B]) on ``device`` (on the
     first data device for a sharded batch)."""
     check_supported(cfg)
     ga, dev = _members(gray_a, device)

@@ -57,10 +57,12 @@ much each end-to-end median may grow before a change counts as a
 regression (``REGRESSION_BOUNDS``). The checks run outside the timed
 window.
 
-The main path runs as users get it: the features program, the edge plan,
-each edge's composite + blend and the enhance tail as CUDA graphs (a
-batch's member as one graph: ``_stitch_one_fixed``; ``core/programs.py``),
-captured in the cold run (``setup.graphs``: the captures and their host
+The main path runs as users get it: the features program, the
+ordering's counts, the edge plan, each edge's composite + blend and the
+enhance tail as CUDA graphs (a batch's member as one graph:
+``_stitch_one_fixed``; a registration pair as one: ``_register_one``;
+``core/programs.py``), captured in the cold run (``setup.graphs``, and
+``register.graphs`` for the registration: the captures and their host
 seconds, inside ``cold_ms``); ``--eager`` runs every program eagerly
 instead, the port before its graphs, for a comparison in one call. The profile counts what
 the replays ran: the kernels of a replayed graph are device events of the
@@ -71,7 +73,10 @@ host-to-device copies inside them; ``graph_launch_host_ms`` holds each
 launch's host time beside its device events. ``launches`` are the wrappers'
 counters, which every replay advances by its graph's launches; on the
 card ``checks.launches_vs_trace`` holds the counters of each traced run
-against the device kernels its trace holds (``probes.launches_vs_trace``).
+against the device kernels its trace holds (``probes.launches_vs_trace``),
+and its graph launches against its program calls (a panorama: one a
+frame, the ordering, the plan, one an edge, the tail; a batch member or
+a registration pair: one; none under ``--eager``).
 ``setup.memory``: the allocator's peak reserved bytes over the warm runs,
 what it holds reserved after them and the part of that in the graphs'
 private pools (``programs.graph_memory``); ``peak_mem_gib`` counts
@@ -390,12 +395,27 @@ def _memory(device: torch.device) -> dict:
             / 2 ** 30, **programs.graph_memory(device)}
 
 
-def _launch_check(*profiles) -> dict:
-    """Each traced run's launch counters against the device kernels its
-    trace holds (``probes.launches_vs_trace``): what disagrees."""
-    wrong = [launches_vs_trace(p["kernels"]) for p in profiles]
-    return {"ok": not any(wrong), "mismatches": wrong,
-            "limit": "each counted launch's device kernels in the trace"}
+def _launch_check(*runs) -> dict:
+    """Each traced run, a (profile, program calls) pair: its launch
+    counters against the device kernels its trace holds
+    (``probes.launches_vs_trace``: what disagrees), and its graph
+    launches against its program calls, one replay each (none under
+    ``--eager``): [traced, expected] per run."""
+    wrong = [launches_vs_trace(p["kernels"]) for p, _ in runs]
+    graphs = [[p["graph_launches"], n if programs.graphs_enabled() else 0]
+              for p, n in runs]
+    return {"ok": not any(wrong) and all(a == b for a, b in graphs),
+            "mismatches": wrong, "graph_launches": graphs,
+            "limit": "each counted launch's device kernels in the trace; "
+                     "one graph launch a program call"}
+
+
+def _stitch_calls(cfg, n_frames: int, n_edges: int) -> int:
+    """The program calls of a ``Stitcher.stitch`` on the planned path: the
+    features program per frame, the ordering's counts (graph ordering),
+    the plan, the composite + blend per edge and the enhance tail."""
+    return (n_frames + (cfg.ordering == "graph") + 1 + n_edges
+            + cfg.enhance.enabled)
 
 
 def run_panorama(cell: Cell, device: torch.device, runs: int,
@@ -456,7 +476,9 @@ def run_panorama(cell: Cell, device: torch.device, runs: int,
         st._timer = timer
     if profile is not None:
         profile["stage_ms"] = {k: v * 1e3 for k, v in traced_stages.items()}
-        checks["launches_vs_trace"] = _launch_check(profile)
+        # the stitched edges: a spanning tree of the frames
+        checks["launches_vs_trace"] = _launch_check(
+            (profile, _stitch_calls(cfg, len(images), len(images) - 1)))
     if keep is not None:
         keep.update(stitcher=st, images=images, out=warm["out"])
     panorama_ms = _stats(warm["walls"])
@@ -613,9 +635,11 @@ def run_batch(cell: Cell, device: torch.device, runs: int,
             cfg, dev)
         return coeffs.cpu().numpy(), inliers.cpu().numpy()
 
+    before = programs.capture_stats()
     t = time.perf_counter()
     reg_cold = register()
     reg_cold_ms = (time.perf_counter() - t) * 1e3
+    reg_graphs = _graph_stats(before)
     reg = _warm(register, runs, device)
     reg_profile = _profile(register, {
         "l1_two_nearest_bidir", "pair_match_counts", "warp_image",
@@ -632,7 +656,9 @@ def run_batch(cell: Cell, device: torch.device, runs: int,
         time.perf_counter() - t)
     n_pairs = n_pan * (k - 1)
     if profile is not None:
-        checks["launches_vs_trace"] = _launch_check(profile, reg_profile)
+        # a member's panorama is one program call, a pair's registration
+        checks["launches_vs_trace"] = _launch_check((profile, n_pan),
+                                                    (reg_profile, n_pairs))
     if reg["launches"] is not None:
         checks["register_b7_once_per_pair"] = {
             "ok": reg["launches"]["l1_two_nearest"] == n_pairs,
@@ -649,6 +675,7 @@ def run_batch(cell: Cell, device: torch.device, runs: int,
         "stage_ms": None, "canvas": list(canvas),
         "launches": warm["launches"], "profile": profile,
         "register": {"pairs": n_pairs, "cold_ms": reg_cold_ms,
+                     "graphs": reg_graphs,
                      "register_ms": _stats(reg["walls"]),
                      "inliers": inliers.tolist(),
                      "launches": reg["launches"], "profile": reg_profile},

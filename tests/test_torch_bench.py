@@ -230,6 +230,31 @@ def test_bench_refuses_bad_arguments(argv):
         bench.main(["--device", "cpu", *argv])
 
 
+def test_launch_check_holds_graph_launches_to_program_calls():
+    """A traced run's graph launches against its program calls: a 4-frame
+    panorama under ``DEFAULT_CONFIG`` makes 10 (frames, the ordering's
+    counts, the plan, three edges, the tail), the chain slice 9 (no
+    ordering program); a launch more or fewer fails the check; under
+    ``disable_graphs()`` none is expected."""
+    from computervisionimagestich2_tpu_torch import (DEFAULT_CONFIG,
+                                                     SLICE_CONFIG)
+    from computervisionimagestich2_tpu_torch.core import programs
+
+    assert bench._stitch_calls(DEFAULT_CONFIG, 4, 3) == 10
+    assert bench._stitch_calls(SLICE_CONFIG, 4, 3) == 9
+    kernels = {"warp_image": {"counted_launches": 3, "device_launches": 3}}
+
+    def traced(n):
+        return {"kernels": kernels, "graph_launches": n}
+    good = bench._launch_check((traced(10), 10), (traced(6), 6))
+    assert good["ok"] and good["graph_launches"] == [[10, 10], [6, 6]]
+    for n in (9, 11):
+        assert not bench._launch_check((traced(n), 10))["ok"]
+    with programs.disable_graphs():
+        assert bench._launch_check((traced(0), 10))["ok"]
+        assert not bench._launch_check((traced(10), 10))["ok"]
+
+
 def test_idle_gaps():
     """Device busy 10-20 and 25-40 (one kernel inside another's span)
     and 45-50 in a window 0-60 us: gaps 0-10, 20-25, 40-45, 50-60; the

@@ -771,6 +771,67 @@ def test_stream_on_card_goes_through_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["incremental", "mixed", "stream",
+                                  "register"])
+def test_registration_programs_on_card_equal_eager(cuda_device, path):
+    """The registration programs off the plan as CUDA graphs on the card:
+    each path twice with graphs (a cold run that captures, a warm one that
+    captures nothing) equals its run under ``disable_graphs()`` bit for
+    bit, launches included; the warm run replays ``register_edge`` once
+    per registration (incremental, mixed, stream), the mixed-shape
+    ordering's pair program once per pair, ``_register_one`` once per
+    pair."""
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.models.streaming import (
+        StreamingStitcher)
+    from computervisionimagestich2_tpu_torch.ops.color import to_gray
+    from computervisionimagestich2_tpu_torch.parallel import batched
+
+    img = _scene(w=240)
+    cfg = dataclasses.replace(_small(DEFAULT_CONFIG), planned=False)
+    crops = [img[:, 80:200], img[:, :120], img[:, 40:160]]
+    if path == "mixed":
+        crops = [img[:110, 80:], img[:, :120], img[:, 40:156]]
+
+    def run():
+        if path == "stream":
+            ss = StreamingStitcher(cfg, device=cuda_device)
+            for i in range(3):
+                ss.push(img[:, i * 50:i * 50 + 140])
+            return [torch.as_tensor(ss.canvas())]
+        if path == "register":
+            g = to_gray(torch.as_tensor(img, device=cuda_device).float())
+            return list(batched.batched_pairwise_register(
+                torch.stack([g[:, 0:140], g[:, 40:180]]),
+                torch.stack([g[:, 30:170], g[:, 70:210]]), cfg, cuda_device))
+        return [torch.as_tensor(Stitcher(cfg, device=cuda_device).stitch(
+            crops))]
+
+    def counted():
+        _native.reset_launch_counts()
+        out = [t.cpu() for t in run()]
+        return out, _native.launch_counts()
+
+    with programs.disable_graphs():
+        ref, ref_counts = counted()
+    programs.clear_graphs()
+    for warm in (False, True):
+        before = programs.capture_stats()
+        out, counts = counted()
+        delta = programs.captures_since(before)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), warm
+        assert counts == ref_counts, (counts, ref_counts)
+        assert delta["captures"] == 0 or not warm, delta
+    replays = delta["replays_by_program"]
+    want = {"incremental": ("register_edge", 2), "mixed": (
+        "mixed_pair_counts", 3), "stream": ("register_edge", None),
+        "register": ("register_one", 2)}[path]
+    assert replays.get(want[0], 0) == (want[1] or counts[
+        "l1_two_nearest_bidir"]) > 0, replays
+    programs.clear_graphs()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("planned", [True, False],
                          ids=["planned", "incremental"])
 def test_projective_on_card_goes_through_the_kernels(cuda_device, planned):

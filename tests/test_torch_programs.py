@@ -241,7 +241,8 @@ def test_prepare_runs_the_features_program_on_mixed_shapes():
 # runs the kernels instead
 PLAIN = {f.__code__ for f in (
     detect.detect_compact_plain, sift_walks.orientation_hist_plain,
-    sift_walks.descriptors_plain, distance.two_nearest_plain)}
+    sift_walks.descriptors_plain, distance.two_nearest_plain,
+    distance.pair_match_counts_plain)}
 HOST_DATA = ("tensor", "as_tensor", "from_numpy")
 SYNCS = ("item", "__int__", "__float__", "__bool__", "tolist", "cpu")
 # operators that read a tensor's value on the host inside PyTorch (an
@@ -337,17 +338,36 @@ def _edge_args(seam: bool):
 def test_warm_programs_make_no_sync_and_no_upload(host_calls, plan_args):
     """A warm call of the features program (fused and dense detection),
     of the plan, of an edge's composite + blend (the full-canvas blend
-    and the seam band), of the enhance tail and of a batch's whole
-    panorama builds no tensor from host data and reads no tensor on the
-    host, outside the plain versions of the kernels (the card runs the
-    kernels)."""
-    from test_torch_batched import TINY, _panoramas
+    and the seam band), of the enhance tail, of a batch's whole panorama,
+    of ``register_edge`` (its edge id a device constant, as the
+    incremental loop hands it over), of the ordering's counts (exact L1
+    and ``l2pre``), of the mixed-shape ordering's pair program and of a
+    batch's registration pair builds no tensor from host data and reads
+    no tensor on the host, outside the plain versions of the kernels (the
+    card runs the kernels). The stream's registration (``register_edge``
+    on its device frame counter, then the counter's step) reads back only
+    its one copy of the models and counts."""
+    from computervisionimagestich2_tpu_torch.models import streaming
+    from test_torch_batched import TINY, _panoramas, _register_scene
 
     img = T(_crops()[0])
     assert SMALL_DEFAULT.sift.detect_impl == "pallas"
     assert SMALL.sift.detect_impl == "xla"
     edge, seam_edge = _edge_args(False), _edge_args(True)
     pano = T(_panoramas((0,))[0])
+    feats, _, img_hw, _, cfg = plan_args
+    f1, f2 = (Features(*(t[i] for t in feats)) for i in (1, 2))
+    f0_part = Features(*(t[0, :256] for t in feats))
+    l2pre = dataclasses.replace(cfg, match=dataclasses.replace(
+        cfg.match, method="l2pre"))
+    gray_a, gray_b = (T(g) for g in _register_scene())
+    ss = streaming.StreamingStitcher(cfg, device="cpu")
+    ss._frame_id = torch.ones((), dtype=torch.int64)
+
+    def stream_register():
+        out = ss._register(f1, f2, img_hw)
+        ss._frame_id += 1
+        return out
     calls = {
         "features": lambda: tbatched._project_and_extract_one(
             img, SMALL_DEFAULT),
@@ -359,16 +379,32 @@ def test_warm_programs_make_no_sync_and_no_upload(host_calls, plan_args):
             *seam_edge),
         "enhance": lambda: tstm.equalize_and_mix(edge[1]),
         "batched panorama": lambda: tbatched._stitch_one_fixed(
-            pano, TINY, (192, 256), tbatched.chain_edge_seq(3))}
+            pano, TINY, (192, 256), tbatched.chain_edge_seq(3)),
+        "register_edge": lambda: treg.register_edge(
+            f1, f2, cfg, programs.const(65538, torch.int64, "cpu"), img_hw),
+        "ordering": lambda: treg.all_pairs_match_counts(
+            feats.desc, feats.valid, cfg),
+        "ordering, l2pre": lambda: treg.all_pairs_match_counts(
+            feats.desc, feats.valid, l2pre),
+        "mixed-shape pair": lambda: tstm._pair_counts(f0_part, f2,
+                                                       cfg.match),
+        "registration pair": lambda: tbatched._register_one(gray_a, gray_b,
+                                                            TINY),
+        "stream registration": stream_register}
+    # the stream's one readback of forward, backward, count and overflow
+    allowed = {"stream registration": {"Tensor.cpu streaming.py"}}
     for name, call in calls.items():
         call()
         host_calls.clear()
         with _SyncOps(host_calls):
             out = call()
-        assert not host_calls, (name, dict(host_calls))
+        sites = {site.split(":")[0]: n for site, n in host_calls.items()}
+        assert sites == dict.fromkeys(allowed.get(name, ()), 1), (
+            name, dict(host_calls))
         assert out is not None
     # the counters see what they are meant to see: an upload, an index
     # by a 0-dim tensor and an item()
+    host_calls.clear()
     t = torch.tensor([1.0, 2.0])
     with _SyncOps(host_calls):
         t[t.argmax()].item()
@@ -611,11 +647,23 @@ def test_failed_capture_raises_with_name_and_key(fake_graphs, monkeypatch):
 
 def test_the_port_programs():
     """The features program, the SIFT program inlined into it, the plan,
-    an edge's composite + blend, the enhance tail and a batch's whole
-    panorama; each wraps the function the JAX package jits."""
-    from computervisionimagestich2_tpu_torch.models import equalization
+    an edge's composite + blend, the enhance tail, a batch's whole
+    panorama, ``register_edge`` (which the plan inlines), the ordering's
+    counts, the mixed-shape ordering's pair and a batch's registration
+    pair; each wraps the function the JAX package jits (the pair: the
+    body of its loop, ``models/stitcher.py:339-348``; the registration
+    pair: the member of its vmapped ``batched_pairwise_register``)."""
+    from computervisionimagestich2_tpu_torch.models import (equalization,
+                                                            streaming)
 
     names = {p.name: p for p in programs._PROGRAMS}
+    assert len(names) == len(programs._PROGRAMS) == 10
+    assert names["register_edge"] is treg.register_edge
+    assert tstm.register_edge is streaming.register_edge is treg.register_edge
+    assert names["all_pairs_match_counts"] is treg.all_pairs_match_counts
+    assert tstm.all_pairs_match_counts is treg.all_pairs_match_counts
+    assert names["mixed_pair_counts"] is tstm._pair_counts
+    assert names["register_one"] is tbatched._register_one
     assert names["project_and_extract"] is tbatched._project_and_extract_one
     assert names["sift_extract_stats"] is tsift.sift_extract_stats
     assert names["plan_edges"] is treg.plan_rows
