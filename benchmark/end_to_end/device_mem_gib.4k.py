@@ -1,0 +1,8 @@
+"""``device_mem_gib`` where the seed's scene sets the canvas, and with it
+the memory: the caching allocator's peak reserved device memory over the
+run up to the window's close, the CUDA graphs' private pools with it
+(``torch.cuda.max_memory_reserved``)."""
+
+
+def read(timing: dict, peak: int) -> float:
+    return peak / 2 ** 30

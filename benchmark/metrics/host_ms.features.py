@@ -1,0 +1,13 @@
+"""Host wall of the stitcher's ``features`` stage per panorama, the mean
+over the traced run's untraced calls (``Stitcher.stage_times``: it does
+not synchronise inside the stage, so it is the host's time)."""
+
+LAYER = "orchestrator (models/stitcher.py)"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "panorama_ms"
+STAGE = "features"
+
+
+def read(run: dict):
+    return run["stage_ms"].get(STAGE)
