@@ -38,6 +38,12 @@ PyTorch pays the host's launch of every kernel of them, one at a time.
   capture and added again by every replay, so the counters read what ran
   (``tools/probes.py::launches_vs_trace`` holds them against the device
   kernels a profiler trace of the same call saw);
+- a capture (its warm-up with it), a replay (copy-in, launch, clone-out),
+  the graph's launch within the replay and a call that a full scope runs
+  eagerly are each a span (``utils/obs.py::span``): ``capture:<name>``,
+  ``replay:<name>``, ``launch:<name>`` and ``overflow:<name>`` in a
+  profiler's trace, the totals ``capture``, ``replay``, ``launch`` and
+  ``overflow`` of the caller's ``StageTimer`` (``Stitcher.stage_times``);
 - each program keeps at most ``max_graphs`` graphs (``MAX_GRAPHS``), the
   least recently replayed dropped first: every graph holds its own memory
   pool (``graph_memory`` reads them), and a process that sees many frame
@@ -65,12 +71,12 @@ import contextlib
 import functools
 import inspect
 import itertools
-import time
 
 import numpy as np
 import torch
 
 from ..ops import _native
+from ..utils import obs
 
 _DISABLED = 0  # disable_graphs() depth
 _INLINE = 0  # depth of program warm-ups and captures in progress
@@ -244,7 +250,8 @@ class Program:
                               if _SCOPE is None or g.scope != _SCOPE), None)
                 if stale is None:
                     self.overflows += 1
-                    return self.fn(*args, **kwargs)
+                    with obs.span("overflow", self.name):
+                        return self.fn(*args, **kwargs)
                 del self.graphs[stale]
                 self.evictions += 1
             entry = self.graphs[key] = _capture(self, key, tensors, spec)
@@ -252,7 +259,7 @@ class Program:
             self.capture_s += entry.seconds
         self.graphs.move_to_end(key)
         entry.scope = _SCOPE
-        out = _replay(entry, tensors)
+        out = _replay(self.name, entry, tensors)
         self.replays += 1
         return out
 
@@ -377,44 +384,50 @@ _BACKEND = _CudaGraphs
 
 def _capture(prog: Program, key, tensors, spec) -> _Graph:
     """Warm ``prog`` up on a side stream, then capture it on static copies
-    of ``tensors``. The launches the wrappers count in the capture are the
+    of ``tensors``, in the span ``capture:<program>`` (its seconds are
+    the graph's). The launches the wrappers count in the capture are the
     graph's; the counters are restored to their values before the
     warm-up."""
     global _INLINE, _CAPTURING
-    t0 = time.perf_counter()
-    device = tensors[0].device
-    counts = dict(_native.LAUNCHES)
-    inputs = [t.detach().clone(memory_format=torch.contiguous_format)
-              for t in tensors]
-    args, kwargs = _unflatten(spec, iter(inputs))
-    _INLINE += 1
-    try:
-        _BACKEND.warm_up(lambda: prog.fn(*args, **kwargs), device)
-        _native.LAUNCHES.update(counts)
-        _CAPTURING += 1
+    with obs.span("capture", prog.name) as timed:
+        device = tensors[0].device
+        counts = dict(_native.LAUNCHES)
+        inputs = [t.detach().clone(memory_format=torch.contiguous_format)
+                  for t in tensors]
+        args, kwargs = _unflatten(spec, iter(inputs))
+        _INLINE += 1
         try:
-            graph, out = _BACKEND.capture(lambda: prog.fn(*args, **kwargs),
-                                          device)
-        except Exception as e:
-            raise RuntimeError(f"program {prog.name}: CUDA graph capture "
-                               f"failed for key {key!r}") from e
+            _BACKEND.warm_up(lambda: prog.fn(*args, **kwargs), device)
+            _native.LAUNCHES.update(counts)
+            _CAPTURING += 1
+            try:
+                graph, out = _BACKEND.capture(
+                    lambda: prog.fn(*args, **kwargs), device)
+            except Exception as e:
+                raise RuntimeError(f"program {prog.name}: CUDA graph "
+                                   f"capture failed for key {key!r}") from e
+            finally:
+                _CAPTURING -= 1
         finally:
-            _CAPTURING -= 1
-    finally:
-        _INLINE -= 1
-        launches = {k: v - counts[k] for k, v in _native.LAUNCHES.items()
-                    if v != counts[k]}
-        _native.LAUNCHES.update(counts)
-    outputs: list[torch.Tensor] = []
-    out_spec = _flatten(out, outputs)
-    return _Graph(graph, inputs, out_spec, outputs, launches,
-                  time.perf_counter() - t0)
+            _INLINE -= 1
+            launches = {k: v - counts[k] for k, v in _native.LAUNCHES.items()
+                        if v != counts[k]}
+            _native.LAUNCHES.update(counts)
+        outputs: list[torch.Tensor] = []
+        out_spec = _flatten(out, outputs)
+    return _Graph(graph, inputs, out_spec, outputs, launches, timed.seconds)
 
 
-def _replay(entry: _Graph, tensors) -> object:
-    for static, t in zip(entry.inputs, tensors):
-        static.copy_(t)
-    _BACKEND.replay(entry.graph, entry.inputs[0].device)
-    for k, n in entry.launches.items():
-        _native.LAUNCHES[k] += n
-    return _unflatten(entry.out_spec, iter(o.clone() for o in entry.outputs))
+def _replay(name: str, entry: _Graph, tensors) -> object:
+    """Program ``name``'s graph ``entry`` on ``tensors``, in the span
+    ``replay:<name>`` (copy-in, launch, clone-out), the graph's launch in
+    the span ``launch:<name>``."""
+    with obs.span("replay", name):
+        for static, t in zip(entry.inputs, tensors):
+            static.copy_(t)
+        with obs.span("launch", name):
+            _BACKEND.replay(entry.graph, entry.inputs[0].device)
+        for k, n in entry.launches.items():
+            _native.LAUNCHES[k] += n
+        return _unflatten(entry.out_spec,
+                          iter(o.clone() for o in entry.outputs))

@@ -70,12 +70,13 @@ def _members(batch, device) -> tuple[list[torch.Tensor], torch.device]:
     """The members of a batch, each on the device it runs on, and the
     device the results go to: a ``ShardedBatch``'s members on their
     chunk's device, results on the first; otherwise the whole batch on
-    ``device``."""
+    ``device``, uploaded in the span ``upload``."""
     if isinstance(batch, ShardedBatch):
         return ([m for c in batch.chunks for m in c],
                 batch.chunks[0].device)
     dev = resolve_device(device)
-    return list(torch.as_tensor(batch, device=dev)), dev
+    with obs.span("upload"):
+        return list(torch.as_tensor(batch, device=dev)), dev
 
 
 @program("register_one")
@@ -239,24 +240,29 @@ def batched_stitch_chain(images, cfg: StitchConfig = DEFAULT_CONFIG,
 
     Returns (canvases [B, Hc, Wc, 3] u8-valued float32 on ``device``, or
     on the first data device for a sharded batch; plans [B, E, 23]
-    numpy); plans[:, -1, 20:22] are the final (w, h) content extents."""
-    check_supported(cfg)
-    batch, dev = _members(images, device)
-    k, h, w = (int(d) for d in batch[0].shape[:3])
-    if k < 2:
-        raise ValueError(f"a panorama needs at least 2 images, got {k}")
-    edge_seq = chain_edge_seq(k)
-    if canvas_hw is None:
-        canvas_hw = default_canvas(h, w, k, cfg)
-    if canvas_hw[0] < h or canvas_hw[1] < w:
-        raise ValueError(f"canvas {canvas_hw} is smaller than an image "
-                         f"({h}, {w})")
-    outs = [_stitch_one_fixed(pano, cfg, canvas_hw, edge_seq)
-            for pano in batch]
-    # one readback of every member's plan, after all of them are queued
-    plans = torch.stack([to_device(p, dev) for _, p in outs]).cpu().numpy()
-    final_w, final_h = plans[:, -1, 20].max(), plans[:, -1, 21].max()
-    if final_w > canvas_hw[1] or final_h > canvas_hw[0]:
-        obs.warn("batched_canvas_overflow",
-                 needed=(int(final_h), int(final_w)), canvas=canvas_hw)
-    return torch.stack([to_device(c, dev) for c, _ in outs]), plans
+    numpy); plans[:, -1, 20:22] are the final (w, h) content extents.
+    The call is the span ``batch_chain``, the plans' readback the span
+    ``readback`` (``utils/obs.py::span``)."""
+    with obs.span("batch_chain"):
+        check_supported(cfg)
+        batch, dev = _members(images, device)
+        k, h, w = (int(d) for d in batch[0].shape[:3])
+        if k < 2:
+            raise ValueError(f"a panorama needs at least 2 images, got {k}")
+        edge_seq = chain_edge_seq(k)
+        if canvas_hw is None:
+            canvas_hw = default_canvas(h, w, k, cfg)
+        if canvas_hw[0] < h or canvas_hw[1] < w:
+            raise ValueError(f"canvas {canvas_hw} is smaller than an image "
+                             f"({h}, {w})")
+        outs = [_stitch_one_fixed(pano, cfg, canvas_hw, edge_seq)
+                for pano in batch]
+        # one readback of every member's plan, after all of them are queued
+        with obs.span("readback"):
+            plans = torch.stack([to_device(p, dev)
+                                 for _, p in outs]).cpu().numpy()
+        final_w, final_h = plans[:, -1, 20].max(), plans[:, -1, 21].max()
+        if final_w > canvas_hw[1] or final_h > canvas_hw[0]:
+            obs.warn("batched_canvas_overflow",
+                     needed=(int(final_h), int(final_w)), canvas=canvas_hw)
+        return torch.stack([to_device(c, dev) for c, _ in outs]), plans

@@ -114,9 +114,8 @@ from ..ops import _native
 from ..ops.color import to_gray
 from ..ops.warp import cylindrical_project, warp_xy
 from ..parallel import batched
-from ..utils import obs
-from .probes import (KERNELS, STAGE_SPAN, canvas_diff, graph_edges,
-                     is_chain, last_edge_vs_cpu, launches_vs_trace,
+from .probes import (KERNELS, canvas_diff, graph_edges, is_chain,
+                     last_edge_vs_cpu, launches_vs_trace,
                      off_branch, profile_call, record_ordering, u8)
 from .scenes import SCRAMBLE, config4, crops, scrambled
 
@@ -200,18 +199,6 @@ def _stats(ms: list[float]) -> dict:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-class _SpanTimer(obs.StageTimer):
-    """A stage timer that also opens a ``torch.profiler`` span per stage,
-    so the traced run can name the stage of each idle gap."""
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        from torch.profiler import record_function
-
-        with record_function(STAGE_SPAN + name), super().stage(name):
-            yield
 
 
 @contextlib.contextmanager
@@ -467,13 +454,9 @@ def run_panorama(cell: Cell, device: torch.device, runs: int,
     else:  # the last timed run's panorama
         checks["canvas_vs_cpu"] = _canvas_check(warm["out"], out_cpu,
                                                 cpu_s)
-    timer, st._timer = st._timer, _SpanTimer()
-    try:
-        profile = _profile(lambda: st.stitch(images), {"l1_two_nearest"}
-                           | off_branch(cfg.warp_model), device)
-        traced_stages = dict(st.stage_times)
-    finally:
-        st._timer = timer
+    profile = _profile(lambda: st.stitch(images), {"l1_two_nearest"}
+                       | off_branch(cfg.warp_model), device)
+    traced_stages = dict(st.stage_times)
     if profile is not None:
         profile["stage_ms"] = {k: v * 1e3 for k, v in traced_stages.items()}
         # the stitched edges: a spanning tree of the frames
@@ -492,8 +475,10 @@ def run_panorama(cell: Cell, device: torch.device, runs: int,
         "peak_mem_gib": warm["peak_mem_gib"],
         "sift_kpts_per_s": {"median": live / statistics.median(features_s),
                             "live_keypoints": live},
-        "stage_ms": {k: statistics.median(s[k] for s in warm["stage_s"]) * 1e3
-                     for k in warm["stage_s"][0]},
+        "stage_ms": {k: statistics.median(s.get(k, 0.0)
+                                          for s in warm["stage_s"]) * 1e3
+                     for k in dict.fromkeys(k for s in warm["stage_s"]
+                                            for k in s)},
         "canvas": list(out_cold.shape), "launches": warm["launches"],
         "profile": profile, "checks": checks, "correct": _correct(checks)}
     if cell.name == HEADLINE:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import _native
+from ..utils import obs
 from .scenes import SCRAMBLE
 
 CSRC = "computervisionimagestich2_tpu_torch/csrc/"
@@ -60,7 +61,7 @@ B6_BRANCH = {"bilinear": "warp_image", "projective": "warp_image_projective"}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 CALL_SPAN = "profile_call"  # the span around the profiled call
-STAGE_SPAN = "stage:"  # prefix of the spans a caller opens around stages
+STAGE_SPAN = obs.STAGE_SPAN  # prefix of the spans of the stitcher's stages
 
 
 def off_branch(model: str) -> set:

@@ -9,8 +9,11 @@
   per process;
 - ``log_sift_overflow`` -- the per-image SIFT truncation report, and
   ``log_sift_overflow_async``, the same from a side thread;
-- ``StageTimer`` -- wall-clock seconds per stage (``Stitcher.stage_times``,
-  the CLI's ``--timing``);
+- ``span``       -- a named interval of the host: its seconds summed into
+  the ``StageTimer`` open for the current call and, while a profiler
+  records, a ``record_function`` annotation in its trace;
+- ``StageTimer`` -- seconds per stage and per span name of one call
+  (``Stitcher.stage_times``, the CLI's ``--timing``);
 - ``trace``      -- a ``torch.profiler`` trace of a block when
   PANORAMA_TPU_TRACE names a directory (the JAX package's variable; there
   it starts ``jax.profiler``).
@@ -18,6 +21,7 @@
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import sys
 import threading
@@ -25,6 +29,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
 _VERBOSE = os.environ.get("PANORAMA_TPU_LOG", "") not in ("", "0")
 
@@ -91,18 +96,101 @@ def log_sift_overflow_async(stats) -> threading.Thread:
     return t
 
 
+STAGE_SPAN = "stage:"  # the trace name of a stage: "stage:<name>"
+# the timer of the call in progress (``StageTimer.call``), per thread
+_OPEN: contextvars.ContextVar = contextvars.ContextVar("open_timer",
+                                                      default=None)
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class span:
+    """A named interval of the host, a context manager:
+    ``with obs.span("replay", "plan"): ...``.
+
+    It always times itself with ``time.perf_counter`` (``seconds``, once
+    closed) and adds the seconds to the ``StageTimer`` open for the
+    current call (``StageTimer.call``) under ``name``, summed over every
+    span of that name in the call; with no call open it adds nothing.
+    Only while a ``torch.profiler`` records does it also enter
+    ``record_function("<name>")``, or ``"<name>:<detail>"`` with a
+    ``detail``: the span is then a ``user_annotation`` event of the
+    trace, nested under its parent, on the profiler's clock. Off the
+    profiler a span costs about a microsecond.
+
+    Open spans only on the host side of program calls
+    (``core/programs.py``): inside a function that a program captures, a
+    span would fire at the capture and never on a replay."""
+
+    __slots__ = ("name", "detail", "seconds", "_t0", "_note")
+
+    def __init__(self, name: str, detail: str | None = None):
+        self.name, self.detail = name, detail
+        self.seconds = 0.0
+        self._note = None
+
+    def __enter__(self):
+        if _profiling():
+            self._note = record_function(
+                self.name if self.detail is None
+                else f"{self.name}:{self.detail}")
+            self._note.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        if self._note is not None:
+            self._note.__exit__(*exc)
+            self._note = None
+        self._total(self.seconds)
+        return False
+
+    def _total(self, seconds: float) -> None:
+        timer = _OPEN.get()
+        if timer is not None:
+            timer.times[self.name] = timer.times.get(self.name, 0.0) + seconds
+
+
+class _Stage(span):
+    """``StageTimer.stage``: the span ``stage:<name>``, its seconds kept
+    under ``<name>`` in its own timer, open or not. A stage runs once a
+    call, so its seconds replace the key's (``StreamingStitcher``, which
+    opens no call, keeps its last push's)."""
+
+    __slots__ = ("timer", "key")
+
+    def __init__(self, timer: "StageTimer", key: str):
+        super().__init__(STAGE_SPAN + key)
+        self.timer, self.key = timer, key
+
+    def _total(self, seconds: float) -> None:
+        self.timer.times[self.key] = seconds
+        log(self.key, seconds=round(seconds, 3))
+
+
 class StageTimer:
+    """Seconds of one call by key (``times``): each stage's wall
+    (``stage``) and, while the timer is open (``call``), the sum of the
+    spans of each name inside the call."""
+
     def __init__(self):
         self.times: dict[str, float] = {}
 
+    def stage(self, name: str) -> span:
+        """The span ``stage:<name>``; its seconds under ``name``."""
+        return _Stage(self, name)
+
     @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
+    def call(self, name: str):
+        """The span ``name`` around one call, with this timer open inside
+        it: its totals start empty and gather every span of the call."""
+        self.times = {}
+        token = _OPEN.set(self)
         try:
-            yield
+            with span(name) as timed:
+                yield timed
         finally:
-            self.times[name] = time.perf_counter() - t0
-            log(name, seconds=round(self.times[name], 3))
+            _OPEN.reset(token)
 
 
 @contextlib.contextmanager

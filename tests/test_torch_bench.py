@@ -135,7 +135,8 @@ def test_bench_cpu_line(cpu_run):
     assert line["panorama_ms"]["n"] == 1
     assert line["canvas"][0] >= 256 and line["canvas"][1] > 2 * 192
     assert set(line["stage_ms"]) == {"features", "ordering", "stitching",
-                                     "enhance"}
+                                     "enhance", "stitch", "upload",
+                                     "readback"}
     kpts = line["sift_kpts_per_s"]
     assert kpts["live_keypoints"] > 100 and kpts["median"] > 0
 
