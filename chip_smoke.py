@@ -24,13 +24,14 @@ phase with its result and seconds:
    function where one exists (``library_ms``, timed here and used nowhere
    in the port) and of the least time the card could take (the bound,
    from these inputs: see ``bound``). B1 is held exactly on every octave
-   of the call (one launch detects an image's four); B1-B5 must give the
-   same bits twice; B4 the bits of B7 run each way; B5 the ratio counts of
-   B4 on every pair; B1, B2 and B6 are also timed on a call with nothing
-   to do (what a launch alone costs), and B6 on the panorama's last and
-   largest canvas through both of its entries (the model and offsets by
-   value, and in device memory, as the main path's programs hand them
-   over: equal bit for bit);
+   of the call (one launch detects an image's four), B8 exactly on every
+   call of the stitch (and timed on the largest of each of its four
+   passes); B1-B5 must give the same bits twice; B4 the bits of B7 run
+   each way; B5 the ratio counts of B4 on every pair; B1, B2 and B6 are
+   also timed on a call with nothing to do (what a launch alone costs),
+   and B6 on the panorama's last and largest canvas through both of its
+   entries (the model and offsets by value, and in device memory, as the
+   main path's programs hand them over: equal bit for bit);
 4. the bench's headline cell on the same images (``tools/bench.py::
    run_panorama``, three warm runs; its JSON line is printed and must say
    ``correct``: the chain, the plan's reprojection parity with the CPU's,
@@ -409,7 +410,8 @@ class Recorder:
 
     def __init__(self, names=None):
         from computervisionimagestich2_tpu_torch.models import compose
-        from computervisionimagestich2_tpu_torch.ops import (detect, distance,
+        from computervisionimagestich2_tpu_torch.ops import (_native, detect,
+                                                             distance,
                                                              sift_walks)
 
         self.sites = {
@@ -419,7 +421,8 @@ class Recorder:
             "l1_two_nearest_bidir": (distance, "two_nearest_bidir"),
             "pair_match_counts": (distance, "pair_match_counts"),
             "warp_image": (compose, "warp_image"),
-            "l1_two_nearest": (distance, "two_nearest")}
+            "l1_two_nearest": (distance, "two_nearest"),
+            "separable_blur": (_native, "separable_blur")}
         if names is None:  # the default path's wrappers
             names = [n for n in self.sites if n not in OFF_MAIN_PATH]
         self.sites = {n: self.sites[n] for n in names}
@@ -808,6 +811,12 @@ def kernel_bound(name: str, a: tuple) -> dict:
         # or read from device memory)
         ops = (22 if model == "bilinear" else 29) * ho * wo
         return bound(b6_read_pixels(a) * c * 4 + 48 + ho * wo * c * 4, ops)
+    if name == "separable_blur":  # x, taps, axis
+        x, taps = a[0], a[1]
+        # the input read once, the output written once, the taps; k
+        # products and k - 1 sums an output
+        return bound(2 * _nbytes(x) + _nbytes(taps),
+                     (2 * taps.shape[0] - 1) * x.numel())
     raise KeyError(name)
 
 
@@ -849,6 +858,68 @@ def l1_library(q, r, both: bool):
     d = torch.cdist(q, r, p=1)
     fwd = torch.topk(d, 2, dim=1, largest=False)
     return (fwd, torch.topk(d, 2, dim=0, largest=False)) if both else fwd
+
+
+def b8_plain(x, taps, axis):
+    """B8's plain version: the shift-and-add of ``ops/gaussian.py``."""
+    from computervisionimagestich2_tpu_torch.ops import gaussian
+
+    return gaussian._shift_and_add(x, taps, axis)
+
+
+def b8_kind(a: tuple) -> str:
+    """The pass a B8 call ``a`` (x, taps, axis) makes: the scale space's
+    along W or H ([H, W] levels) or the blend's ([H, W, 7] canvases)."""
+    x, _, axis = a
+    along_w = axis % x.dim() == (1 if x.dim() == 3 else x.dim() - 1)
+    return ("blend_" if x.dim() == 3 else "sift_") + ("w" if along_w else "h")
+
+
+def check_b8(calls: list) -> dict:
+    """Kernel B8 against its plain version on every recorded call, on the
+    card: equal bit for bit, or it raises. Returns the calls by pass
+    (``b8_kind``) with their shapes, dtypes, radii and whether the input
+    was strided (an octave's decimated base, a resized blend level)."""
+    import torch
+
+    from computervisionimagestich2_tpu_torch.ops import _native
+
+    kinds: dict = {}
+    for a in calls:
+        kind = b8_kind(a)
+        assert torch.equal(_native.separable_blur(*a), b8_plain(*a)), (
+            "B8 != plain", kind, tuple(a[0].shape), a[0].dtype, a[2])
+        k = kinds.setdefault(kind, {"calls": 0, "shapes": set(),
+                                    "dtypes": set(), "radii": set(),
+                                    "strided_inputs": 0})
+        k["calls"] += 1
+        k["shapes"].add(tuple(a[0].shape))
+        k["dtypes"].add(str(a[0].dtype).removeprefix("torch."))
+        k["radii"].add((a[1].shape[0] - 1) // 2)
+        k["strided_inputs"] += not a[0].is_contiguous()
+    return {"max_abs_err": 0.0, "calls_equal_plain": len(calls),
+            "calls_by_pass": {n: {**k, **{f: sorted(k[f]) for f in (
+                "shapes", "dtypes", "radii")}} for n, k in kinds.items()}}
+
+
+def b8_by_pass(calls: list) -> dict:
+    """B8 alone on the largest call of each pass (the first octave's
+    plane, the blend's level 0; the most taps among equals): device time,
+    bound and share, and the plain version's time."""
+    from computervisionimagestich2_tpu_torch.ops import _native
+
+    largest: dict = {}
+    for a in calls:
+        kind = b8_kind(a)
+        if kind not in largest or (a[0].numel(), a[1].shape[0]) > (
+                largest[kind][0].numel(), largest[kind][1].shape[0]):
+            largest[kind] = a
+    return {kind: timed_kernel(
+        "separable_blur", a, lambda a=a: _native.separable_blur(*a),
+        lambda a=a: b8_plain(*a), shape=list(a[0].shape),
+        dtype=str(a[0].dtype).removeprefix("torch."),
+        taps=int(a[1].shape[0]), axis=a[2])
+        for kind, a in sorted(largest.items())}
 
 
 def check_b1(a: tuple) -> dict:
@@ -1072,8 +1143,9 @@ def check_kernels(rec: Recorder) -> list[dict]:
     and the bounds of the panorama's calls summed."""
     import torch
 
-    from computervisionimagestich2_tpu_torch.ops import (detect, distance,
-                                                         sift_walks, warp)
+    from computervisionimagestich2_tpu_torch.ops import (_native, detect,
+                                                         distance, sift_walks,
+                                                         warp)
 
     args = rec.args
     rows = []
@@ -1164,6 +1236,15 @@ def check_kernels(rec: Recorder) -> list[dict]:
     assert a[5] == "bilinear", a[5]
     add("warp_image", b6_err(a), lambda: warp.warp_image(*a),
         lambda: b6_plain(*a), **b6_extra(rec.calls["warp_image"]))
+
+    calls = rec.calls["separable_blur"]
+    a = calls[0]
+    b8 = check_b8(calls)
+    add("separable_blur", b8.pop("max_abs_err"),
+        lambda: _native.separable_blur(*a), lambda: b8_plain(*a),
+        library_note=no_library + " in tap order with each product and "
+                                  "sum rounded", **b8,
+        by_pass=b8_by_pass(calls))
     return rows
 
 
@@ -1988,7 +2069,7 @@ def register_phase(scene_order, b7: dict) -> dict:
         secs = time.perf_counter() - t
     launches = _native.launch_counts()
     on_path = {"detect_compact", "sift_orientation_hist", "sift_descriptors",
-               "l1_two_nearest"}
+               "l1_two_nearest", "separable_blur"}
 
     def timed_register():
         t = time.perf_counter()
@@ -2482,7 +2563,9 @@ def uhd_kernels(rec: Recorder, feats, edge: list) -> dict:
     (``check_b4``) and on the edge ``edge`` at the extractor's full
     capacity; B5 on the recorded call (against plain) and on the four
     images at full capacity (chunked within its scratch budget); B6 exact
-    on the last and largest canvas."""
+    on the last and largest canvas; B8 exact on every call (the scale
+    space in float32, the seam band's blend in bfloat16) and timed on the
+    largest of each pass (``b8_by_pass``)."""
     import torch
 
     from computervisionimagestich2_tpu_torch.ops import (detect, distance,
@@ -2535,6 +2618,9 @@ def uhd_kernels(rec: Recorder, feats, edge: list) -> dict:
     e = rec.calls["warp_image"][-1]
     rows["warp_image"] = {**b6_at(e), "plain_ms": cuda_ms(
         lambda: b6_plain(*e), reps=3), "max_abs_err": b6_err(e)}
+    calls = rec.calls["separable_blur"]
+    rows["separable_blur"] = {**check_b8(calls),
+                              "by_pass": b8_by_pass(calls)}
     return rows
 
 
@@ -2808,7 +2894,8 @@ MANY_FRAMES, MANY_SEED = 11, 7
 
 PROFILE_KEYS = ("wall_s", "device_busy_ms", "idle_share", "device_events",
                 "memcpy_htod_events", "graph_launches", "graph_device_events",
-                "memcpy_htod_in_replays", "graph_launch_host_ms")
+                "memcpy_htod_in_replays", "graph_launch_host_ms",
+                "profiler_lead_kept")
 
 
 @contextlib.contextmanager

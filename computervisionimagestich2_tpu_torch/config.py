@@ -163,6 +163,9 @@ class BlendConfig:
     """Multi-band Laplacian blend (ImageProcess.cpp:648-773)."""
 
     blur_sigma: float = 2.0       # get_blur(2,...), ImageProcess.cpp:709
+    # With "fir" on the card at most 16: the separable-blur kernel takes a
+    # radius ceil(4 sigma) of at most 64 (``ops/_native.MAX_BLUR_RADIUS``)
+    # and raises ValueError above it; the CPU's shift-and-add has no limit.
     # "fir": separable FIR Gaussian; "vanvliet": CImg's exact recursive
     # filter with Triggs boundaries (get_blur(2,true,true)), the parity
     # mode; "fir_fused": a TPU-only fused blur-and-shrink, not ported.

@@ -1,8 +1,9 @@
 // Plain C interface of the port's CUDA kernels (bound with ctypes from
 // ops/_native.py). Every function launches on `stream`, does not
 // synchronise, allocates nothing, and returns the launch's cudaError_t.
-// Pointers are device pointers to contiguous float32 / int32 arrays; masks
-// are bool arrays (one byte per entry), coordinates int64.
+// Pointers are device pointers to contiguous float32 / int32 arrays (B8:
+// float32 or bfloat16, its input strided); masks are bool arrays (one byte
+// per entry), coordinates int64.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -102,6 +103,19 @@ cudaError_t cvs_warp_image(const float* src, int src_h, int src_w,
 cudaError_t cvs_warp_image_dev(const float* src, int src_h, int src_w,
                                int channels, const float* params, int model,
                                int h_out, int w_out, float* out,
+                               cudaStream_t stream);
+
+// B8: one pass of the separable Gaussian along the middle axis of x viewed
+// as [outer, length, inner]: out[o, l, i] = sum_j taps[j] * x[o, clamp(l +
+// j - r, 0, length - 1), i], r = (n_taps - 1) / 2, summed in tap order with
+// each product and each sum rounded to the working type (float32, or
+// bfloat16 with bf16 = 1; taps and out in the same type). x's element (o,
+// l, i) lies at o * stride_outer + l * stride_length + i; out is
+// contiguous. n_taps odd, r at most 64, else cudaErrorInvalidValue.
+cudaError_t cvs_separable_blur(const void* x, long long outer, int length,
+                               int inner, long long stride_outer,
+                               long long stride_length, const void* taps,
+                               int n_taps, int bf16, void* out,
                                cudaStream_t stream);
 
 #ifdef __cplusplus

@@ -20,11 +20,16 @@ through the kernels (``reset_launch_counts`` / ``launch_counts``). B6
 counts its two branches apart: ``warp_image`` (bilinear) and
 ``warp_image_projective``, each over both of its entries (parameters by
 value, or in device memory).
+
+``separable_blur`` is B8's wrapper, here because it serves one private
+caller (``ops/gaussian.py::_conv1d_axis``, which takes it for every CUDA
+tensor; the plain shift-and-add beside it for CPU tensors).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -35,7 +40,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("detect.cu", "sift_walks.cu", "l1_2nn.cu", "pair_counts.cu",
-           "warp.cu")
+           "warp.cu", "blur.cu")
 HEADERS = ("api.h", "l1.cuh", "l1_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
@@ -43,10 +48,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"detect_compact": 0, "sift_orientation_hist": 0,
             "sift_descriptors": 0, "l1_two_nearest_bidir": 0,
             "pair_match_counts": 0, "warp_image": 0,
-            "warp_image_projective": 0, "l1_two_nearest": 0}
+            "warp_image_projective": 0, "l1_two_nearest": 0,
+            "separable_blur": 0}
+# B8's largest radius, (taps - 1) / 2 (the scale space takes 5 to 19, the
+# blend 8)
+MAX_BLUR_RADIUS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
@@ -83,6 +93,9 @@ _SIGNATURES = {
     # (src, src_h, src_w, channels, params (11 floats on the card), model,
     #  h_out, w_out, out, stream)
     "cvs_warp_image_dev": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P),
+    # (x, outer, length, inner, stride_outer, stride_length, taps, n_taps,
+    #  bf16, out, stream)
+    "cvs_separable_blur": (_P, _L, _I, _I, _L, _L, _P, _I, _I, _P, _P),
 }
 
 _LIB = None
@@ -198,3 +211,62 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: pointer not {align}-byte aligned")
+
+
+def separable_blur(x: torch.Tensor, taps: torch.Tensor,
+                   axis: int) -> torch.Tensor:
+    """Kernel B8: one pass of the separable Gaussian along ``axis`` of a
+    CUDA tensor, out = sum_j taps[j] * xpad[j : j + L] with edge
+    replication, in tap order and with each product and sum rounded to
+    x's dtype: the bits of ``ops/gaussian.py::_shift_and_add``. ``x``:
+    float32 or bfloat16, its dimensions before ``axis`` mergeable into one
+    and those after it contiguous (a decimated view is fine); ``taps``: an
+    odd number of them, the radius at most ``MAX_BLUR_RADIUS``, in x's
+    dtype on x's device (the device constant ``_conv1d_axis`` keeps).
+    Returns a new contiguous tensor of x's shape."""
+    k = taps.shape[0] if taps.dim() == 1 else 0
+    if k % 2 == 0 or (k - 1) // 2 > MAX_BLUR_RADIUS:
+        raise ValueError(f"separable_blur: expected an odd number of taps "
+                         f"with radius <= {MAX_BLUR_RADIUS}, got "
+                         f"{tuple(taps.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"separable_blur: expected a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"separable_blur: expected float32 or bfloat16, got "
+                        f"{x.dtype}")
+    check_cuda("separable_blur.taps", taps, x.dtype, (k,), align=2)
+    if taps.device != x.device:
+        raise ValueError(f"separable_blur: taps on {taps.device}, x on "
+                         f"{x.device}")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if out.numel() >= 2 ** 31:
+        raise ValueError(f"separable_blur: expected fewer than 2^31 values, "
+                         f"got shape {tuple(x.shape)}")
+    view = blur_view(x, axis)
+    LAUNCHES["separable_blur"] += 1
+    launch("cvs_separable_blur", x.device, view.data_ptr(), view.shape[0],
+           view.shape[1], view.shape[2], view.stride(0), view.stride(1),
+           taps.data_ptr(), k, int(x.dtype == torch.bfloat16), out.data_ptr())
+    return out
+
+
+def blur_view(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``x`` viewed as [outer, length, inner] along ``axis``, as B8 reads
+    it: element (o, l, i) at o * stride(0) + l * stride(1) + i. No copy:
+    raises ValueError if the dimensions before ``axis`` do not merge into
+    one or those after it are not contiguous."""
+    axis %= x.dim()
+    outer = math.prod(x.shape[:axis])
+    inner = math.prod(x.shape[axis + 1:])
+    try:
+        view = x.view(outer, x.shape[axis], inner)
+    except RuntimeError:
+        view = None
+    if view is None or (inner > 1 and view.stride(2) != 1):
+        raise ValueError(f"separable_blur: shape {tuple(x.shape)} with "
+                         f"strides {x.stride()} does not view as [outer, "
+                         f"length, contiguous inner] along axis {axis}")
+    return view

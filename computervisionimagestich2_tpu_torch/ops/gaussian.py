@@ -6,9 +6,11 @@ taps[j] = exp(-0.5 ((j - W) / sigma)^2), normalised; padding by continuity
 (edge replication, VL_PAD_BY_CONTINUITY).
 
 The 1-D passes are the same shift-and-add as the JAX package, summing the
-taps in the same order, so float results match. ``conv2d`` is avoided on
-purpose: cuDNN would bring TF32 and another summation order, and the blurs
-decide strict DoG extrema downstream.
+taps in the same order, so float results match: on a CPU tensor as
+``_shift_and_add``, on a CUDA tensor as kernel B8 (``csrc/blur.cu``), one
+launch a pass, with the same bits. ``conv2d`` is avoided on purpose: cuDNN
+would bring TF32 and another summation order, and the blurs decide strict
+DoG extrema downstream.
 
 ``vanvliet_blur`` is CImg's recursive Van Vliet Gaussian with Triggs
 boundaries (get_blur(sigma, true, true), CImg.h:34887-34933, 35045-35116),
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.programs import const
+from . import _native
 
 
 @lru_cache(maxsize=None)
@@ -55,15 +58,27 @@ def _conv1d_axis(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     """Correlate along ``axis`` with edge-replicate padding: out =
     sum_j taps[j] * xpad[j : j + L] in tap order. Taps are rounded to
     x's dtype first (as the reference casts them), so a bfloat16 blur
-    multiplies by bfloat16 taps. The index and the taps are device
-    constants (``const``)."""
-    k = taps.shape[0]
+    multiplies by bfloat16 taps; they are a device constant (``const``).
+    Kernel B8 (``_native.separable_blur``, one launch) on a CUDA tensor;
+    ``_shift_and_add`` on a CPU tensor."""
+    taps_t = const(taps, x.dtype, x.device)
+    if x.device.type == "cpu":
+        return _shift_and_add(x, taps_t, axis)
+    return _native.separable_blur(x, taps_t, axis)
+
+
+def _shift_and_add(x: torch.Tensor, taps_t: torch.Tensor,
+                   axis: int) -> torch.Tensor:
+    """The plain version of ``_conv1d_axis`` (``taps_t``: the taps as a
+    tensor of x's dtype on x's device): an edge-replicated copy of x
+    (``index_select`` with a device-constant index), then one multiply and
+    one add over the whole tensor a tap."""
+    k = taps_t.shape[0]
     r = (k - 1) // 2
     axis = axis % x.dim()
     length = x.shape[axis]
     idx = const(_replicate_index(r, length), torch.int64, x.device)
     xp = x.index_select(axis, idx)
-    taps_t = const(taps, x.dtype, x.device)
     out = None
     for j in range(k):
         term = taps_t[j] * xp.narrow(axis, j, length)

@@ -30,7 +30,6 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..core.programs import const
 from ..models.blender import (blend_stacked, half_plane_mask, n_levels,
                               resolve_dtype)
 from ..ops.gaussian import _conv1d_axis, gauss_taps
@@ -73,23 +72,15 @@ def _halo_below(xs: list[torch.Tensor], k: int,
 
 def _halo_blur(xs: list[torch.Tensor], taps: np.ndarray) -> list[torch.Tensor]:
     """Separable FIR blur of stripes [H_loc, W, C]: W pass local, H pass
-    over a 2r-row halo, the taps in x's dtype summed term by term in tap
-    order: the values of ``models.blender._blur_hwc``."""
+    over a 2r-row halo (the halo rows replace the padding, so the rows
+    ``_conv1d_axis`` pads on are cut off), the taps in x's dtype summed
+    term by term in tap order: the values of ``models.blender._blur_hwc``."""
     r = (taps.shape[0] - 1) // 2
     xw = [_conv1d_axis(x, taps, 1) for x in xs]
     above = _halo_above(xw, r, zero_edge=False)
     below = _halo_below(xw, r, zero_edge=False)
-    out = []
-    for x, up, down in zip(xw, above, below):
-        ext = torch.cat([up, x, down], dim=0)
-        t = const(taps, x.dtype, x.device)
-        h_loc = x.shape[0]
-        acc = None
-        for j in range(taps.shape[0]):
-            term = t[j] * ext[j:j + h_loc]
-            acc = term if acc is None else acc + term
-        out.append(acc)
-    return out
+    return [_conv1d_axis(torch.cat([up, x, down], dim=0), taps, 0)[r:-r]
+            for x, up, down in zip(xw, above, below)]
 
 
 def _halo_shrink_rows(xs: list[torch.Tensor],

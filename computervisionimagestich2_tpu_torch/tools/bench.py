@@ -333,6 +333,7 @@ def _profile(fn, off, device: torch.device) -> dict | None:
             "graph_launches": p["graph_launches"],
             "graph_device_events": p["graph_device_events"],
             "memcpy_htod_in_replays": p["memcpy_htod_in_replays"],
+            "profiler_lead_kept": p["profiler_lead_kept"],
             "graph_launch_host_ms": p["graph_launch_host_ms"],
             "kernels": {name: {"id": KERNELS[name][0],
                                "device_ms": k["ms"],

@@ -17,7 +17,10 @@ import torch
 
 from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG, SLICE_CONFIG
 from computervisionimagestich2_tpu_torch.models.stitcher import Stitcher
-from computervisionimagestich2_tpu_torch.ops import _native, detect, distance
+from computervisionimagestich2_tpu_torch.core.programs import const
+from computervisionimagestich2_tpu_torch.models import blender
+from computervisionimagestich2_tpu_torch.ops import (_native, detect, distance,
+                                                     gaussian)
 from computervisionimagestich2_tpu_torch.ops import warp as twarp
 
 T = torch.as_tensor
@@ -261,6 +264,12 @@ def test_cpu_tensors_take_the_plain_version():
     library is built."""
     _native.reset_launch_counts()
     src = T(_u8_image(11, 20, 20))
+    plane = src[..., 0].contiguous()
+    taps = const(gaussian.gauss_taps(1.6), torch.float32, "cpu")
+    assert torch.equal(gaussian.gaussian_blur(plane, 1.6),
+                       gaussian._shift_and_add(
+                           gaussian._shift_and_add(plane, taps, -1), taps, -2))
+    blender._blur_hwc(src, 2.0)
     coef = T(np.array([1, 0, 0, 0, 0, 1, 0, 0], np.float32))
     out = twarp.warp_image(src, coef, 0.0, 0.0, (20, 20))
     torch.testing.assert_close(out, src)
@@ -270,6 +279,73 @@ def test_cpu_tensors_take_the_plain_version():
     distance.pair_match_counts(T(desc), T(valid), T(pairs))
     distance.ratio_match(T(desc[0]), T(desc[1]), T(valid[0]), T(valid[1]))
     assert _native.launch_counts() == dict.fromkeys(_native.LAUNCHES, 0)
+
+
+def test_b8_is_built_and_bound():
+    """B8's source is compiled into the library with the others, its C
+    entry bound with 64-bit sizes and strides, and its launches counted
+    and traced under one name."""
+    from computervisionimagestich2_tpu_torch.tools import probes
+
+    assert "blur.cu" in _native.SOURCES
+    assert _native._SIGNATURES["cvs_separable_blur"] == (
+        _native._P, _native._L, _native._I, _native._I, _native._L,
+        _native._L, _native._P, _native._I, _native._I, _native._P,
+        _native._P)
+    assert "separable_blur" in _native.LAUNCHES
+    assert probes.KERNELS["separable_blur"][:3] == (
+        "B8", "cuda", probes.CSRC + "blur.cu")
+    assert probes.DEVICE_KERNELS["separable_blur"] == (
+        "separable_blur_kernel",)
+
+
+@pytest.mark.parametrize("k", [131, 4, 0])
+def test_b8_refuses_taps_it_does_not_take_on_any_device(k):
+    """A radius above ``MAX_BLUR_RADIUS`` (64), an even or empty tap list
+    is refused before the device is looked at, so on the CPU too; within
+    the limit a CPU tensor is refused as not a CUDA tensor."""
+    x = torch.zeros((3, 5))
+    with pytest.raises(ValueError, match="odd number of taps"):
+        _native.separable_blur(x, torch.ones(k), -1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _native.separable_blur(x, torch.ones(129), -1)
+
+
+@pytest.mark.parametrize("case", ["plane_w", "plane_h", "batch_h",
+                                  "decimated", "resized_hwc", "hwc_h"])
+def test_b8_view_addresses_every_element(case):
+    """``blur_view`` gives the [outer, length, inner] view B8 reads through
+    its outer and axis strides, without a copy, for the layouts the main
+    path hands over (an octave's decimated base, a resized blend level,
+    which is a transpose); the strides address each element of x."""
+    from computervisionimagestich2_tpu_torch.ops.resize import (
+        cimg_resize, vlfeat_downsample)
+
+    rng = np.random.default_rng(3)
+    plane = T(rng.random((9, 12), np.float32))
+    hwc = T(rng.random((9, 12, 7), np.float32))
+    x, axis = {"plane_w": (plane, -1), "plane_h": (plane, 0),
+               "batch_h": (torch.stack([plane, plane]), 1),
+               "decimated": (vlfeat_downsample(plane, 1), -1),
+               "resized_hwc": (cimg_resize(hwc, 5, 6), 1),
+               "hwc_h": (hwc, 0)}[case]
+    view = _native.blur_view(x, axis)
+    assert view.data_ptr() == x.data_ptr()
+    outer, length, inner = view.shape
+    assert length == x.shape[axis] and outer * length * inner == x.numel()
+    assert inner == 1 or view.stride(2) == 1
+    walked = torch.as_strided(x, view.shape, view.stride())
+    assert torch.equal(walked, x.reshape(outer, length, inner))
+
+
+def test_b8_view_refuses_what_does_not_merge():
+    """Leading dimensions that do not merge, or trailing ones that are
+    not contiguous, are refused rather than copied."""
+    x = torch.zeros((2, 9, 12))[:, ::2]
+    with pytest.raises(ValueError, match="does not view"):
+        _native.blur_view(x, -1)
+    with pytest.raises(ValueError, match="does not view"):
+        _native.blur_view(torch.zeros((4, 6, 3)).transpose(0, 1), 0)
 
 
 def test_cuda_device_raises_without_gpu():
@@ -854,9 +930,9 @@ def test_projective_on_card_goes_through_the_kernels(cuda_device, planned):
 def test_batched_stitch_on_card_equals_one_at_a_time(cuda_device):
     """Two panoramas of three crops through ``batched_stitch_chain`` on the
     card: each equals ``_stitch_one_fixed`` on that panorama alone, bit for
-    bit; the batch launches B1 once per image, B4 and B6 once per edge and
-    nothing else; the canvases are the CPU batch's within the end-to-end
-    gate (equal shape, MAD <= 3 u8 levels)."""
+    bit; the batch launches B1 once per image, B4 and B6 once per edge, B8
+    for every blur pass and nothing else; the canvases are the CPU batch's
+    within the end-to-end gate (equal shape, MAD <= 3 u8 levels)."""
     from computervisionimagestich2_tpu_torch.parallel import batched
 
     img = _scene(w=260)
@@ -868,7 +944,7 @@ def test_batched_stitch_on_card_equals_one_at_a_time(cuda_device):
     counts = _native.launch_counts()
     want = {"detect_compact": 6, "sift_orientation_hist": None,
             "sift_descriptors": None, "l1_two_nearest_bidir": 4,
-            "warp_image": 4}
+            "warp_image": 4, "separable_blur": None}
     for k, c in counts.items():
         assert (c == 0) == (k not in want), counts
         assert want.get(k) in (None, c), counts
@@ -1002,3 +1078,111 @@ def test_mesh_on_card_launches_b6_per_stripe(cuda_device):
     assert meshed.shape == single.shape
     diff = np.abs(meshed.astype(np.int32) - single.astype(np.int32))
     assert (diff > 1).mean() < 1e-3 and diff.max() <= 16, diff.max()
+
+
+# B8's cases: the scale space's sigmas (DEFAULT_CONFIG: the first blur and
+# the four increments; o_min=-1's first blur), the blend's, and the
+# radius's ends (1 and MAX_BLUR_RADIUS = 64)
+B8_SIGMAS = (1.52, 1.6, 2.2627, 3.2, 4.5255, 2.0, 1.249, 0.2, 16.0)
+B8_SHAPES = ((1, 1), (3, 50), (48, 64), (384, 512), (2160, 3840))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", B8_SHAPES, ids=lambda hw: "%dx%d" % hw)
+@pytest.mark.parametrize("sigma", B8_SIGMAS)
+def test_kernel_b8_matches_plain(cuda_device, sigma, hw):
+    """B8 equals the plain shift-and-add on the card bit for bit: [H, W]
+    along W and H, a batch [2, H, W] along both, [H, W, 7] along W and H
+    in float32 and in bfloat16, an octave's decimated base and a resized
+    blend level (strided inputs); one launch a pass."""
+    from computervisionimagestich2_tpu_torch.ops.resize import (
+        cimg_resize, vlfeat_downsample)
+
+    h, w = hw
+    gen = torch.Generator(cuda_device).manual_seed(h * 7919 + w)
+    plane = torch.rand((h, w), generator=gen, device=cuda_device) * 255
+    hwc = torch.rand((h, w, 7), generator=gen, device=cuda_device) * 255
+    batch = torch.stack([plane, plane.flip(0)])
+    cases = [(plane, -1), (plane, -2), (batch, -1), (batch, -2),
+             (hwc, 1), (hwc, 0), (hwc.bfloat16(), 1), (hwc.bfloat16(), 0),
+             (cimg_resize(hwc, max(h // 2, 1), max(w // 2, 1)), 1)]
+    if w > 1:  # a one-column plane decimates to nothing
+        cases.append((vlfeat_downsample(plane, 1), -1))
+    taps = gaussian.gauss_taps(sigma)
+    for x, axis in cases:
+        t = const(taps, x.dtype, cuda_device)
+        _native.reset_launch_counts()
+        got = _native.separable_blur(x, t, axis)
+        assert _native.launch_counts()["separable_blur"] == 1
+        want = gaussian._shift_and_add(x, t, axis)
+        assert got.dtype == want.dtype and got.is_contiguous()
+        assert torch.equal(got, want), (tuple(x.shape), x.dtype, axis)
+
+
+@pytest.mark.cuda
+def test_b8_stitch_on_card_equals_the_plain_blur(cuda_device, monkeypatch):
+    """A DEFAULT_CONFIG stitch of four scrambled 512x384 crops on the card,
+    with graphs: a warm stitch launches B8 once a pass, two passes for
+    every Gaussian of the scale space (each octave's increments, the first
+    octave's first blur) and two for each blurred pyramid level of each
+    edge's blend; its features, plan and panorama equal bit for bit the
+    same stitch with ``_native.separable_blur`` replaced by the plain
+    shift-and-add."""
+    from computervisionimagestich2_tpu_torch.core import programs
+    from computervisionimagestich2_tpu_torch.models import stitcher as stm
+    from computervisionimagestich2_tpu_torch.models.sift import (
+        scale_space_sigmas)
+    from computervisionimagestich2_tpu_torch.tools.scenes import (crops,
+                                                                  scrambled)
+
+    images = scrambled(crops(512, 384, 224, 2, seed=0))
+    plans = []
+    plan_rows = stm.plan_edges_with_rows
+
+    def recorded_plan(*args):
+        plan, rows = plan_rows(*args)
+        plans.append(plan)
+        return plan, rows
+
+    monkeypatch.setattr(stm, "plan_edges_with_rows", recorded_plan)
+
+    def stitch():
+        programs.clear_graphs()
+        st = Stitcher(DEFAULT_CONFIG, device=cuda_device)
+        st.stitch(images)  # cold: captures the graphs
+        _native.reset_launch_counts()
+        out = st.stitch(images)
+        feats = [t.cpu() for t in st._feats_stacked]
+        return out, feats, plans[-1], _native.launch_counts()
+
+    out, feats, plan, counts = stitch()
+    plain_calls, levels = [0], []
+    blend_stacked = blender.blend_stacked
+
+    def plain_blur(x, taps, axis):
+        plain_calls[0] += 1
+        return gaussian._shift_and_add(x, taps, axis)
+
+    def counted_blend(s0, n_levels, *args):
+        levels.append(n_levels)
+        return blend_stacked(s0, n_levels, *args)
+
+    monkeypatch.setattr(_native, "separable_blur", plain_blur)
+    ref_out, ref_feats, ref_plan, ref_counts = stitch()
+    assert np.array_equal(out, ref_out)
+    assert all(torch.equal(a, b) for a, b in zip(feats, ref_feats))
+    assert np.array_equal(plan, ref_plan)
+    assert ref_counts["separable_blur"] == 0
+    # every pass once, counted where its Python runs: eagerly
+    plain_calls[0] = 0
+    monkeypatch.setattr(blender, "blend_stacked", counted_blend)
+    with programs.disable_graphs():
+        Stitcher(DEFAULT_CONFIG, device=cuda_device).stitch(images)
+    first, inc = scale_space_sigmas(DEFAULT_CONFIG.sift)
+    sift_passes = 2 * len(images) * (
+        DEFAULT_CONFIG.sift.n_octaves * len(inc) + (first is not None))
+    blend_passes = 2 * sum(n - 1 for n in levels)
+    assert len(levels) == len(images) - 1 and blend_passes > 0, levels
+    assert counts["separable_blur"] == sift_passes + blend_passes == \
+        plain_calls[0], (counts, sift_passes, blend_passes, plain_calls)
+    programs.clear_graphs()

@@ -767,6 +767,36 @@ def test_launch_counters_against_the_trace():
     assert wrong["l1_two_nearest_bidir"]["device_kernels_per_launch"] == 2
 
 
+def test_profile_call_leaves_out_its_lead_and_traces_again(monkeypatch):
+    """On a card ``profile_call`` opens each session with spin kernels: a
+    session whose trace kept none of them (the profiler lost its first
+    records) is traced again, the kept ones are left out of the report,
+    and sessions that all lose them raise."""
+    from computervisionimagestich2_tpu_torch.tools import probes
+
+    def ev(name, ts):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": 1}
+
+    kept = [ev("spin_kernel(long)", 0), ev("detect_octaves_kernel<4>", 5)]
+    traces = iter([[ev("detect_octaves_kernel<4>", 5)], kept])
+    seen = []
+    monkeypatch.setattr(probes, "_lead_kernels", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(probes, "_trace", lambda prof: next(traces))
+    monkeypatch.setattr(probes, "summarize", lambda events, wall, gaps: (
+        seen.append(events) or {"device_busy_ms": 1.0, "kernels": {
+            n: {"ms": 1.0, "device_launches": 0}
+            for n in probes.DEVICE_KERNELS}}))
+    calls = []
+    out = probes.profile_call(lambda: calls.append(1), off=set())
+    assert len(calls) == 2 and out["profiler_lead_kept"] == 1
+    assert seen == [[kept[1]]]
+    monkeypatch.setattr(probes, "_trace", lambda prof: [])
+    with pytest.raises(RuntimeError, match="lost all 2 lead kernels"):
+        probes.profile_call(lambda: None, off=set())
+
+
 def test_profile_call_counts_the_calls_launches(monkeypatch):
     """``profile_call`` puts each wrapper's launches in the profiled call
     beside the trace's count (here on the CPU, where the trace holds no
