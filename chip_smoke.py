@@ -214,11 +214,12 @@ phase with its result and seconds:
    4K the composite + blend program then holds its ``MAX_GRAPHS``); at
    512x384 a fresh interpreter names the owner of what stays allocated
    in a private pool after every graph is dropped (``pool_owner_probe``:
-   the allocator's history); (d) ``MANY_FRAMES`` 512x384 crops, one more
-   composite + blend key a frame than ``MAX_GRAPHS`` allows
-   (``many_edges_phase``): graphs against eager bit for bit, and a warm
-   stitch captures nothing, replays ``MAX_GRAPHS`` edges and runs the
-   rest eagerly;
+   the allocator's history); (d) the benchmark's dataset2 geometry, 18
+   crops of 800x600 350 px apart on two seeds, nine more composite + blend
+   keys than ``MAX_GRAPHS`` allows (``many_edges_phase``): graphs against
+   eager bit for bit, a warm stitch captures nothing, replays
+   ``MAX_GRAPHS`` edges and runs the 9 others eagerly, and no pair of
+   frames that shares nothing draws the pair threshold's matches;
 19. the port's benchmark, ``bench_torch.py --cells pano4_512x384 --runs
    1``, in a fresh interpreter: exit code 0, one JSON line on stdout,
    printed, that says ``correct`` and shows the cold run's captures: the
@@ -2889,8 +2890,10 @@ def bench_cell(name: str, **change) -> tuple:
     return keep["stitcher"], keep["out"], line
 
 
-# phase 18d: a scene with more composite + blend keys than a program keeps
-MANY_FRAMES, MANY_SEED = 11, 7
+# phase 18d: the benchmark's dataset2 geometry (18 crops of 800 x 600, 350 px
+# apart, feature scale 2), more composite + blend keys than a program keeps
+MANY_FRAMES, MANY_HW, MANY_STEP, MANY_SCALE = 18, (800, 600), 350, 2
+MANY_SEEDS = (7, 8)
 
 PROFILE_KEYS = ("wall_s", "device_busy_ms", "idle_share", "device_events",
                 "memcpy_htod_events", "graph_launches", "graph_device_events",
@@ -3018,61 +3021,79 @@ def program_mode(images, cfg, eager: bool, fresh: list) -> tuple:
     return rep, out, got, launches
 
 
-def many_edges_phase(n: int = MANY_FRAMES) -> dict:
-    """Phase 18d: ``n`` 512x384 crops of one scene in a seeded order, so
-    ``n - 1`` edges, each growing the canvas: more composite + blend keys
-    than the program keeps (``MAX_GRAPHS``). The same Stitcher stitches
-    eagerly (``disable_graphs``) and with graphs, cold then three warm.
-    The panoramas and launch counts equal the eager ones bit for bit; a
-    warm stitch captures and drops nothing: it replays the first
-    ``MAX_GRAPHS`` edges' graphs and runs the others eagerly
+def many_edges_phase(seeds=MANY_SEEDS, n: int = MANY_FRAMES) -> dict:
+    """Phase 18d: the benchmark's dataset2 geometry, ``n`` crops of
+    ``MANY_HW`` (h, w) ``MANY_STEP`` px apart, of the scene of each seed in
+    a seeded order: ``n - 1`` edges, each growing the canvas, more
+    composite + blend keys than the program keeps (``MAX_GRAPHS``). The
+    same Stitcher stitches eagerly (``disable_graphs``) and with graphs,
+    cold then three warm. The panoramas and launch counts equal the eager
+    ones bit for bit; a warm stitch captures and drops nothing: it replays
+    the first ``MAX_GRAPHS`` edges' graphs and runs the others eagerly
     (``overflows``), call after call (one scope a stitch,
-    ``core/programs.py::scope``), beside the frames', the plan's and the
-    tail's graphs."""
+    ``core/programs.py::scope``), beside the frames', the ordering's, the
+    plan's and the tail's graphs. Every pair of frames that shares nothing
+    (two or more steps apart in the scene) draws fewer chance matches than
+    the pair threshold, so the ordering finds the scene's chain."""
     from computervisionimagestich2_tpu_torch import DEFAULT_CONFIG
     from computervisionimagestich2_tpu_torch.core import programs
     from computervisionimagestich2_tpu_torch.models import stitcher as stm
 
-    scene = crops(512, 384, 224, 2, seed=MANY_SEED, n=n)
-    order = np.random.default_rng(n).permutation(n).tolist()
-    images = [scene[k] for k in order]
-    programs.clear_graphs()
-    st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
-    with programs.disable_graphs():
-        out_e, cold_e = run(st, images)
-        _, t_e, launches_e = counted_run(st, images)
-        eager_s = [t_e] + [run(st, images)[1] for _ in range(2)]
-    c0 = programs.capture_stats()
-    out_c, cold_g = run(st, images)
-    cold = programs.captures_since(c0)
-    warm, walls = [], []
-    for i in range(3):
-        c = programs.capture_stats()
-        if i == 0:
-            out_w, t, launches_g = counted_run(st, images)
-        else:
-            out_w, t = run(st, images)
-        walls.append(t)
-        warm.append(programs.captures_since(c))
-    assert np.array_equal(out_c, out_e) and np.array_equal(out_w, out_e), \
-        "many-edge graph panorama != eager"
-    assert launches_g == launches_e, (launches_g, launches_e)
     edge = stm._composite_and_blend
-    keys = cold["by_program"]["composite_and_blend"] + cold["overflows"]
-    assert keys == n - 1 > edge.max_graphs, cold
-    for d in warm:
-        assert d["captures"] == 0 and d["evictions"] == 0, d
-        assert d["overflows"] == n - 1 - edge.max_graphs, d
-        # frames, the ordering, the plan, the kept edges, the enhance tail
-        assert d["replays"] == n + 1 + 1 + edge.max_graphs + 1, d
-    return {"frames": n, "order": order, "canvas": list(out_e.shape),
-            "composite_keys": keys, "max_graphs": edge.max_graphs,
+    threshold = DEFAULT_CONFIG.match.pair_threshold
+    out = {"frames": n, "hw": list(MANY_HW), "step": MANY_STEP,
+           "max_graphs": edge.max_graphs, "scenes": []}
+    for seed in seeds:
+        scene = crops(*MANY_HW, MANY_STEP, MANY_SCALE, seed=seed, n=n)
+        order = np.random.default_rng(seed).permutation(n).tolist()
+        images = [scene[k] for k in order]
+        programs.clear_graphs()
+        st = stm.Stitcher(DEFAULT_CONFIG, device="cuda")
+        with programs.disable_graphs():
+            out_e, cold_e = run(st, images)
+            with program_outputs() as got:
+                _, t_e, launches_e = counted_run(st, images)
+            eager_s = [t_e] + [run(st, images)[1] for _ in range(2)]
+        counts = got["ordering"][-1].cpu().numpy()
+        apart = [max(int(counts[i, j]), int(counts[j, i]))
+                 for i in range(n) for j in range(i + 1, n)
+                 if abs(order[i] - order[j]) >= 2]
+        assert max(apart) < threshold, (seed, max(apart))
+        c0 = programs.capture_stats()
+        out_c, cold_g = run(st, images)
+        cold = programs.captures_since(c0)
+        warm, walls = [], []
+        for i in range(3):
+            c = programs.capture_stats()
+            if i == 0:
+                out_w, t, launches_g = counted_run(st, images)
+            else:
+                out_w, t = run(st, images)
+            walls.append(t)
+            warm.append(programs.captures_since(c))
+        assert np.array_equal(out_c, out_e) and np.array_equal(out_w, out_e), \
+            "many-edge graph panorama != eager"
+        assert launches_g == launches_e, (launches_g, launches_e)
+        keys = cold["by_program"]["composite_and_blend"] + cold["overflows"]
+        assert keys == n - 1 > edge.max_graphs, cold
+        for d in warm:
+            assert d["captures"] == 0 and d["evictions"] == 0, d
+            assert d["overflows"] == n - 1 - edge.max_graphs, d
+            assert d["replays_by_program"]["composite_and_blend"] == \
+                edge.max_graphs, d
+            # frames, the ordering, the plan, the kept edges, the tail
+            assert d["replays"] == n + 1 + 1 + edge.max_graphs + 1, d
+        out["scenes"].append({
+            "seed": seed, "order": order, "canvas": list(out_e.shape),
+            "composite_keys": keys, "most_chance_matches": max(apart),
             "cold": {"graphs_s": cold_g, "eager_s": cold_e, **cold},
             "warm": warm[0], "warm_s": walls, "eager_warm_s": eager_s,
             "warm_median_ratio": (statistics.median(walls)
                                   / statistics.median(eager_s)),
-            "equal": {"panorama": True, "launches": True},
-            "memory": programs.graph_memory("cuda")}
+            "stage_s": dict(st.stage_times),
+            "memory": programs.graph_memory("cuda")})
+    out["equal"] = {"panorama": True, "launches": True}
+    return out
 
 
 def bench_phase() -> dict:
@@ -3561,7 +3582,8 @@ def main() -> int:
         del fresh
     del images_4k
     t = time.perf_counter()
-    emit(f"graphs_many_edges_{MANY_FRAMES}x512x384", t, **many_edges_phase())
+    emit(f"graphs_many_edges_{MANY_FRAMES}x{MANY_HW[0]}x{MANY_HW[1]}", t,
+         **many_edges_phase())
 
     # -- 19. the bench's own entry point on its headline cell
     t = time.perf_counter()

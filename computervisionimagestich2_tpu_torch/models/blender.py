@@ -165,8 +165,9 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
                     blur_impl: str = "fir") -> torch.Tensor:
     """Seam-band multi-band blend: pyramid-blend only a [H, 4*band] window
     centred on the half-plane seam and copy a / b elsewhere; only the
-    central 2*band columns of the window are pasted back. Canvases
-    narrower than 4*band take the full blend.
+    central 2*band columns of the window are pasted back. The canvas is
+    at least 4*band wide (``blend_plan`` gives a narrower one the full
+    blend).
 
     The window's start column stays on the device (JAX's
     ``dynamic_slice_in_dim`` / ``dynamic_update_slice_in_dim``): the
@@ -174,9 +175,6 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
     with ``index_copy_``, so nothing is read back."""
     h, w = a.shape[0], a.shape[1]
     wb = 4 * band
-    if wb > w:
-        return blend_two_images(a, b, level_mode, blur_sigma, content_h,
-                                dtype, blur_impl)
     dtype = resolve_dtype(dtype, h, wb)
     mask0 = half_plane_mask(a, b, content_h)
     # seam column: the half-plane row has one transition; count the prefix
@@ -195,27 +193,44 @@ def blend_seam_band(a: torch.Tensor, b: torch.Tensor, band: int,
                            blended_win[:, band:3 * band])
 
 
+def blend_plan(bcfg, h: int, w: int) -> tuple[int, str]:
+    """What ``blend_edge`` runs on an h x w canvas under this BlendConfig:
+    (band, dtype), band 0 for the full-canvas pyramid, else the seam-band
+    window of ``blend_seam_band`` (explicit ``seam_band`` or the area
+    gate), with the "auto" precision policy resolved against
+    ``bf16_auto_area``. A canvas narrower than the window takes the full
+    blend at the window's precision."""
+    thr = bcfg.bf16_auto_area
+    band = bcfg.seam_band
+    if band == 0 and seam_auto_engaged(bcfg, h, w):
+        band = bcfg.seam_auto_band
+    if band == 0:
+        return 0, resolve_dtype(bcfg.dtype, h, w, thr)
+    dt = resolve_dtype(bcfg.dtype, h, min(4 * band, w), thr)
+    # the window keeps the full-canvas policy's choice, so the gate
+    # cannot flip a big canvas back to f32
+    if (bcfg.seam_band == 0 and bcfg.dtype == "auto"
+            and resolve_dtype("auto", h, w, thr) == "bf16"):
+        dt = "bf16"
+    return (band if 4 * band <= w else 0), dt
+
+
+def blend_mode(bcfg, h: int, w: int) -> str:
+    """The blend ``blend_edge`` runs on an h x w canvas, by name: "band"
+    (the seam-band window) or the full canvas in "f32" or "bf16"."""
+    band, dtype = blend_plan(bcfg, h, w)
+    return "band" if band else dtype
+
+
 def blend_edge(a: torch.Tensor, b: torch.Tensor, bcfg,
                content_h: int | torch.Tensor | None = None) -> torch.Tensor:
     """Config-driven blend: the reference's full-canvas pyramid, or the
-    seam-band window (explicit ``seam_band`` or the area gate), with the
-    "auto" precision policy resolved against ``bf16_auto_area``. The
-    gates read the canvas's shape; ``content_h`` (``half_plane_mask``)
-    only moves the seam row."""
-    thr = bcfg.bf16_auto_area
-    band = bcfg.seam_band
-    h, w = int(a.shape[0]), int(a.shape[1])
-    if band == 0 and seam_auto_engaged(bcfg, h, w):
-        band = bcfg.seam_auto_band
+    seam-band window, as ``blend_plan`` resolves them. The gates read the
+    canvas's shape; ``content_h`` (``half_plane_mask``) only moves the
+    seam row."""
+    band, dt = blend_plan(bcfg, int(a.shape[0]), int(a.shape[1]))
     if band > 0:
-        dt = resolve_dtype(bcfg.dtype, h, min(4 * band, w), thr)
-        # the window keeps the full-canvas policy's choice, so the gate
-        # cannot flip a big canvas back to f32
-        if (bcfg.seam_band == 0 and bcfg.dtype == "auto"
-                and resolve_dtype("auto", h, w, thr) == "bf16"):
-            dt = "bf16"
         return blend_seam_band(a, b, band, bcfg.level_mode, bcfg.blur_sigma,
                                content_h, dt, bcfg.blur_impl)
     return blend_two_images(a, b, bcfg.level_mode, bcfg.blur_sigma,
-                            content_h, resolve_dtype(bcfg.dtype, h, w, thr),
-                            bcfg.blur_impl)
+                            content_h, dt, bcfg.blur_impl)

@@ -61,7 +61,7 @@ from ..parallel.blend import plan_shard_levels, sharded_composite_and_blend
 from ..parallel.mesh import Mesh, gather_rows
 from ..utils import artifacts, load_image, obs, save_image
 from . import compose
-from .blender import apply_composite_gain, blend_edge, n_levels
+from .blender import apply_composite_gain, blend_edge, blend_mode, n_levels
 from .equalization import equalize_and_mix
 from .matcher import match_features_bidir
 from .registration import (all_pairs_match_counts, plan_edges_with_rows,
@@ -391,15 +391,26 @@ class Stitcher:
         # the model stays on the device; the offsets go up in one copy
         offsets = torch.tensor([min_x, min_y], dtype=torch.float32,
                                device=self.device)
-        result = _composite_and_blend(
-            projected[dst_i], result, backward, offsets,
-            self._comp_hw(new_h, new_w), (new_h, new_w), cfg)
+        result = self._blend(projected[dst_i], result, backward, offsets,
+                             self._comp_hw(new_h, new_w), (new_h, new_w))
         feats[dst_i] = update_features_by_warp(feats[dst_i], forward,
                                                min_x, min_y, cfg.warp_model)
         feats[pre_i] = update_features_by_offset(feats[pre_i],
                                                  float(int(min_x)),
                                                  float(int(min_y)))
         return result
+
+    def _blend(self, proj_dst, result, bwd, offsets, comp_hw, out_hw):
+        """One edge's ``_composite_and_blend`` in the span
+        ``blend:<mode>`` (its total ``blend.<mode>``), whether the call
+        replays a graph, captures one or runs eagerly: the mode is the
+        blend the blender's policy takes on the edge's canvas
+        (``blender.blend_mode``), "f32" or "bf16" over the full canvas or
+        "band", the area-gated seam band."""
+        mode = blend_mode(self.config.blend, *comp_hw)
+        with obs.span("blend", mode, total=f"blend.{mode}"):
+            return _composite_and_blend(proj_dst, result, bwd, offsets,
+                                        comp_hw, out_hw, self.config)
 
     @staticmethod
     def _validate_canvas(new_h, new_w, img_hw, where: str,
@@ -476,9 +487,9 @@ class Stitcher:
                 result = trunc_u8(
                     gather_rows(blended, self.device)[:new_h, :new_w])
             else:
-                result = _composite_and_blend(
-                    projected[dst_i], result, rows[k, 9:9 + n_coef],
-                    rows[k, 18:20], comp_hw, (new_h, new_w), cfg)
+                result = self._blend(projected[dst_i], result,
+                                     rows[k, 9:9 + n_coef], rows[k, 18:20],
+                                     comp_hw, (new_h, new_w))
             obs.log("edge", src=src_i, dst=dst_i, canvas=(new_h, new_w))
             if plan[k, 22] > 0:
                 obs.warn("match_overflow", src=src_i, dst=dst_i,
@@ -518,8 +529,9 @@ class Stitcher:
         are not dropped for one another. One call of ``stage_times``: the
         span ``stitch`` around it all, the four stages (``stage:<name>``
         spans) and the totals of the spans inside (``upload``,
-        ``readback``, and the programs' ``replay``, ``launch``,
-        ``capture`` and ``overflow``; ``utils/obs.py::span``)."""
+        ``readback``, each edge's ``blend.<mode>`` (``_blend``), and the
+        programs' ``replay``, ``launch``, ``capture`` and ``overflow``;
+        ``utils/obs.py::span``)."""
         with self._timer.call("stitch"):
             cfg = self.config
             resumed = bool(resume and self.artifact_dir and os.path.exists(

@@ -109,8 +109,9 @@ class span:
 
     It always times itself with ``time.perf_counter`` (``seconds``, once
     closed) and adds the seconds to the ``StageTimer`` open for the
-    current call (``StageTimer.call``) under ``name``, summed over every
-    span of that name in the call; with no call open it adds nothing.
+    current call (``StageTimer.call``) under ``total`` (by default
+    ``name``), summed over every span of that key in the call; with no
+    call open it adds nothing.
     Only while a ``torch.profiler`` records does it also enter
     ``record_function("<name>")``, or ``"<name>:<detail>"`` with a
     ``detail``: the span is then a ``user_annotation`` event of the
@@ -121,10 +122,12 @@ class span:
     (``core/programs.py``): inside a function that a program captures, a
     span would fire at the capture and never on a replay."""
 
-    __slots__ = ("name", "detail", "seconds", "_t0", "_note")
+    __slots__ = ("name", "detail", "total", "seconds", "_t0", "_note")
 
-    def __init__(self, name: str, detail: str | None = None):
+    def __init__(self, name: str, detail: str | None = None,
+                 total: str | None = None):
         self.name, self.detail = name, detail
+        self.total = name if total is None else total
         self.seconds = 0.0
         self._note = None
 
@@ -148,7 +151,8 @@ class span:
     def _total(self, seconds: float) -> None:
         timer = _OPEN.get()
         if timer is not None:
-            timer.times[self.name] = timer.times.get(self.name, 0.0) + seconds
+            timer.times[self.total] = (timer.times.get(self.total, 0.0)
+                                       + seconds)
 
 
 class _Stage(span):

@@ -1186,3 +1186,29 @@ def test_b8_stitch_on_card_equals_the_plain_blur(cuda_device, monkeypatch):
     assert counts["separable_blur"] == sift_passes + blend_passes == \
         plain_calls[0], (counts, sift_passes, blend_passes, plain_calls)
     programs.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_many_frames_on_card_equal_eager(cuda_device):
+    """The benchmark's dataset2 geometry on the card, 18 crops of 800x600
+    350 px apart, 17 edges (``chip_smoke.py``'s phase 18d on one seed):
+    the panorama and launch counts with graphs equal the eager ones bit
+    for bit; a warm stitch captures and drops nothing, replays 8 edge
+    graphs and runs the 9 other edges eagerly; no pair of frames that
+    shares nothing draws the pair threshold's matches."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from computervisionimagestich2_tpu_torch.core import programs
+
+    try:
+        (scene,) = chip_smoke.many_edges_phase(
+            seeds=chip_smoke.MANY_SEEDS[:1])["scenes"]
+    finally:
+        programs.clear_graphs()
+    warm = scene["warm"]
+    assert warm["overflows"] == 9 and warm["captures"] == 0, warm
+    assert warm["replays_by_program"]["composite_and_blend"] == 8, warm
+    assert scene["most_chance_matches"] < DEFAULT_CONFIG.match.pair_threshold
