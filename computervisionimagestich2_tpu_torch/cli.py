@@ -83,7 +83,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "chain = pre-ordered left-to-right (ex6 variant)")
     p.add_argument("--timing", action="store_true",
                    help="print per-stage and end-to-end seconds "
-                        "(the ex6 clock() print) and the kernel launches")
+                        "(the ex6 clock() print), the kernel launches "
+                        "and the frames' uploads")
     p.add_argument("--no-enhance", action="store_true",
                    help="skip the equalization/luma-mix tail")
     p.add_argument("--warp-model", choices=["bilinear", "projective"],
@@ -170,7 +171,7 @@ def main(argv=None):
                          devices=None if args.device == "cuda" else ["cpu"])
     cfg = build_config(args)
 
-    from .models.stitcher import Stitcher
+    from .models.stitcher import UPLOADS, Stitcher
     from .ops import _native
     from .utils import load_image, obs, save_image
 
@@ -207,6 +208,7 @@ def main(argv=None):
             print(f"{stage}: {secs:.3f} s")
         print(f"total time: {elapsed:.3f} s")
         print(f"kernel launches: {json.dumps(_native.launch_counts())}")
+        print(f"uploads: {json.dumps(UPLOADS)}")
     print(f"wrote {args.output} ({out.shape[1]}x{out.shape[0]})")
 
 

@@ -4,8 +4,12 @@
 Equivalent of class ImageProcess (ImageProcess.cpp) as a host orchestrator
 of device stages:
 
-  per image:  cylindrical projection -> u8 luma -> SIFT (images of one
-              shape share one u8 upload; mixed shapes go one by one)
+  per image:  upload -> cylindrical projection -> u8 luma -> SIFT, one
+              image after another (on the card, images of one shape go
+              up through a pinned host buffer the ``Stitcher`` keeps, into
+              one stacked u8 tensor, image k+1 staged while the card runs
+              image k's features; mixed shapes and the CPU take each
+              image as it is)
   ordering:   graph discovery (the default: all-pairs match counts from one
               launch of kernel B5 on uniform shapes, a program; or one
               bidirectional match per i<j pair on mixed shapes, a program
@@ -39,8 +43,9 @@ of device stages:
 ``stitch(..., resume=True)`` reloads the features instead of running SIFT.
 With ``PANORAMA_TPU_TRACE`` set, the features and stitching stages are
 traced (``utils/obs.py::trace``, ``torch.profiler``).
-Images are uploaded as u8 to ``device`` and the panorama comes back as a
-u8 numpy array; a CUDA run synchronises before it returns.
+Images are uploaded as u8 to ``device`` (``UPLOADS`` counts them by way)
+and the panorama comes back as a u8 numpy array; a CUDA run synchronises
+before it returns.
 """
 from __future__ import annotations
 
@@ -71,6 +76,19 @@ from .registration import (all_pairs_match_counts, plan_edges_with_rows,
 # runs it inlined in the features program
 from .sift import sift_extract_stats  # noqa: F401
 from .transfer import color_transfer
+
+# the frames ``Stitcher.prepare`` uploaded, by way: through a Stitcher's
+# pinned staging buffer, any other way, and the pinned buffers made
+UPLOADS = {"staged_frames": 0, "direct_frames": 0, "staging_allocs": 0}
+
+
+def _host_tensor(img) -> torch.Tensor:
+    """``img`` as a CPU tensor: a view of the caller's array where torch
+    can take one, else (negative strides, read-only) a contiguous copy."""
+    a = np.asarray(img)
+    if not a.flags.writeable or min(a.strides, default=0) < 0:
+        a = np.array(a)
+    return torch.from_numpy(a)
 
 
 @program("composite_and_blend")
@@ -209,6 +227,10 @@ class Stitcher:
         self.mesh_axis = mesh_axis
         self._timer = obs.StageTimer()
         self._feats_stacked: Features | None = None
+        # the pinned host buffer of the frames' upload (``_staging_for``)
+        # and the event after its last copy to the device
+        self._staging: torch.Tensor | None = None
+        self._staged: torch.cuda.Event | None = None
 
     @property
     def stage_times(self) -> dict[str, float]:
@@ -249,32 +271,75 @@ class Stitcher:
     def prepare(self, images: Sequence[np.ndarray]):
         """Project + SIFT for each input image (readFile,
         ImageProcess.cpp:11-24). Returns (projected [H, W, 3] float32
-        tensors, Features per image). Each image runs the per-image
-        features program (``parallel/batched.py::_project_and_extract_one``:
-        on the card one CUDA graph per frame shape, replayed per frame, as
-        the JAX package dispatches one compiled program per frame). Images
-        of one shape share one u8 upload and their features are also kept
-        stacked for the planned path; mixed shapes are uploaded one by one
-        and leave nothing stacked. The frames' stacking and upload are the
-        span ``upload``."""
+        tensors, Features per image). Each image is uploaded (``_upload``)
+        and runs the per-image features program (``parallel/batched.py::
+        _project_and_extract_one``: on the card one CUDA graph per frame
+        shape, replayed per frame, as the JAX package dispatches one
+        compiled program per frame) before the next image goes up, so on
+        the card the host stages an image while the device runs the one
+        before. Images of one shape also keep their features stacked for
+        the planned path; mixed shapes leave nothing stacked."""
         from ..parallel import batched
 
         cfg = self.config
         shapes = {np.asarray(img).shape for img in images}
-        with obs.span("upload"):
-            if len(shapes) == 1:
-                frames = torch.as_tensor(
-                    np.stack([np.asarray(i) for i in images]),
-                    device=self.device)
-            else:
-                frames = [torch.as_tensor(np.asarray(i), device=self.device)
-                          for i in images]
-        feats, projected, stats = zip(*(
-            batched._project_and_extract_one(img, cfg) for img in frames))
-        feats, projected = list(feats), list(projected)
+        feats, projected, stats = (list(x) for x in zip(*(
+            batched._project_and_extract_one(frame, cfg)
+            for frame in self._upload(images, len(shapes) == 1))))
         obs.log_sift_overflow(torch.stack(stats).cpu().numpy())
         self._feats_stacked = self._stack(shapes, feats)
         return projected, feats
+
+    def _upload(self, images: Sequence[np.ndarray], uniform: bool):
+        """Yield each image on the device in turn, each upload a span
+        ``upload``. On the card, images of one shape (``uniform``) are
+        copied by the host into the kept pinned buffer (``_staging_for``)
+        and from there, without waiting, into one stacked device tensor
+        [N, H, W, 3], which the caller's program reads after the copy in
+        stream order; the host copy of the next image then overlaps the
+        device's work on this one. Otherwise (the CPU, mixed shapes) each
+        image goes up on its own: wrapped without a copy on the CPU, copied
+        from the caller's memory on the card."""
+        if not (uniform and self.device.type == "cuda"):
+            for img in images:
+                with obs.span("upload"):
+                    frame = torch.as_tensor(_host_tensor(img),
+                                            device=self.device)
+                UPLOADS["direct_frames"] += 1
+                yield frame
+            return
+        stream = torch.cuda.current_stream(self.device)
+        staging = frames = None
+        for k, img in enumerate(images):
+            with obs.span("upload"):
+                host = _host_tensor(img)
+                if staging is None:
+                    staging = self._staging_for((len(images), *host.shape),
+                                                host.dtype)
+                    frames = torch.empty(staging.shape, dtype=staging.dtype,
+                                         device=self.device)
+                staging[k].copy_(host)
+                frames[k].copy_(staging[k], non_blocking=True)
+                self._staged.record(stream)
+            UPLOADS["staged_frames"] += 1
+            yield frames[k]
+
+    def _staging_for(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """The pinned host buffer of ``shape`` and ``dtype``, kept between
+        calls and made anew only when these change, handed out once the
+        device has read what was last staged in it (``_staged``). It is a
+        live tensor and not a block of PyTorch's pinned cache because every
+        CUDA graph capture empties that cache (``torch.cuda.graph`` calls
+        ``torch._C._host_emptyCache``): pinned blocks taken per call would
+        be allocated again after any capture."""
+        if self._staged is None:
+            self._staged = torch.cuda.Event()
+        self._staged.synchronize()
+        if (self._staging is None or self._staging.shape != shape
+                or self._staging.dtype != dtype):
+            self._staging = torch.empty(shape, dtype=dtype, pin_memory=True)
+            UPLOADS["staging_allocs"] += 1
+        return self._staging
 
     @staticmethod
     def _stack(shapes: set, feats: list[Features]) -> Features | None:

@@ -71,7 +71,7 @@ def test_build_config_matches_jax(argv):
 # options whose help differs from the JAX CLI's on purpose: the JAX text
 # names TPU mechanisms or measurements, or the port's option does more
 HELP_OWN = {
-    "timing": "also prints the kernel launches",
+    "timing": "also prints the kernel launches and the frames' uploads",
     "blend_dtype": "the JAX text quotes a TPU measurement",
     "no_seam_auto": "the same words, one in lower case",
     "seam_band": "the JAX text gives the TPU cost model",
@@ -123,7 +123,7 @@ def test_cli_runs_on_cpu_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     for line in ("features:", "stitching:", "enhance:",
-                 "total time:", "kernel launches:", "wrote "):
+                 "total time:", "kernel launches:", "uploads:", "wrote "):
         assert line in proc.stdout, proc.stdout
     pano = load_image(str(out))
     cfg = cli.build_config(cli.make_parser().parse_args(argv))

@@ -126,10 +126,10 @@ def test_programs_record_capture_replay_launch_and_overflow(fake_graphs):
 
 def test_annotations_nest_in_the_trace(fake_graphs, monkeypatch):
     """Under a CPU profiler a stitch's spans are ``user_annotation``
-    events: ``upload`` inside ``stage:features`` inside ``stitch``, the
-    enhance tail's replay and the readback inside ``stage:enhance``; a
-    program's spans carry its name, ``launch:<name>`` inside
-    ``replay:<name>``. The features program and the edges are stubbed:
+    events: one ``upload`` a frame, each inside ``stage:features`` inside
+    ``stitch``, the enhance tail's replay and the readback inside
+    ``stage:enhance``; a program's spans carry its name, ``launch:<name>``
+    inside ``replay:<name>``. The features program and the edges are stubbed:
     the spans, not the stitch, are under test."""
     def features(image, cfg):
         proj = image.float()
@@ -153,7 +153,9 @@ def test_annotations_nest_in_the_trace(fake_graphs, monkeypatch):
         hits = [e for e in notes if e["name"] == name]
         assert len(hits) == 1, (name, [e["name"] for e in notes])
         return hits[0]
-    assert _inside(one("upload"), one("stage:features"))
+    uploads = [e for e in notes if e["name"] == "upload"]
+    assert len(uploads) == len(images)
+    assert all(_inside(u, one("stage:features")) for u in uploads)
     assert _inside(one("stage:features"), one("stitch"))
     assert _inside(one("readback"), one("stage:enhance"))
     assert _inside(one("replay:equalize_and_mix"), one("stage:enhance"))
